@@ -1,30 +1,45 @@
-"""GPU smoke test of the tpuslam_torch main path, run from the repo root:
+"""GPU smoke test of the tpuslam_torch main paths, run from the repo root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--spread N]
 
 Needs one CUDA card and nvcc (/usr/local/cuda); imports neither JAX nor
 tpuslam.  Phases, each of which raises on failure:
 
 1. device: refuse to run without CUDA; print torch/CUDA versions and the
    card's name and power limit (nvidia-smi);
-2. build: compile the four hand-written kernels (tpuslam_torch/csrc/*.cu)
-   into build/tpuslam_torch/ and print the seconds;
+2. build: compile the six hand-written kernels (tpuslam_torch/csrc/*.cu)
+   in parallel into build/tpuslam_torch/ and print the seconds;
 3. kernels: render the bench's 1241x376 sequence on the card, then hold
-   each kernel (K1 StereoBM, K2 GFTT response+dilation, K3 ORB, K4
-   covariance medians) to its plain PyTorch version at main-path shapes
-   (exact equality), and time both (median of 20 runs, CUDA events);
-4. main path: FastSlamPipeline.run_staged over the 120 frames in the
-   slice configuration, once warm and once timed, with every launch
-   counter reset before the timed run; assert each kernel ran and no plain
-   version did, all poses finite, no lost frame beyond the JAX-on-CPU
-   yardstick and ATE within the bound of PERF.md.
+   each kernel to its plain PyTorch version at main-path shapes and time
+   both (median of 20 runs, CUDA events): K1 StereoBM, K2 GFTT
+   response+dilation, K3 ORB, K4 covariance medians and K5 LR check
+   exactly;
+4. main path: what bench.py runs -- FastSlamPipeline.run_staged over the
+   120 frames in SlamConfig() with a Mapper (async loop closure, device
+   dictionary), once warm and once timed, every counter reset just before
+   the timed run; assert each of the six kernels ran and no plain version
+   did, one Mapper node per frame and a non-empty dictionary, bench.py:240's
+   gates (0 lost, median inliers >= 300, t_err <= 1 %) and ATE within the
+   bound of PERF.md;
+5. K6: the LM refine against its plain version to rvec 1e-5, tvec 1e-4
+   and the same inliers at 2 px, timed, on the arguments the warm run's VO
+   step gave it at frame 1, and on a scene with a known pose;
+6. post-loop: the robust pose graph and global BA on the timed run's
+   Mapper; assert finite poses and a non-empty graph;
+7. slice path: the first slice's configuration (no LR check, no refine,
+   no Mapper), timed, with its own counters (K1-K4) and ATE bound.
+
+With --spread N the main path is run again with RANSAC seeds 1..N and the
+quality of each is printed (the data behind PERF.md's ATE bound).
 
 Prints fps, inliers, ATE and KITTI errors, one JSON line of per-kernel
 numbers, the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,13 +52,22 @@ import torch
 N_FRAMES, WIDTH, HEIGHT = 120, 1241, 376
 FOCAL, BASELINE, SPEED, YAW, SEED = 718.856, 0.54, 1.4, 0.003, 11
 CHUNK, CAPACITY = 30, 1536
-# yardstick: tpuslam (JAX on the CPU) in the slice configuration on this
-# sequence lost no frame, ATE 0.5956 m; the port's RANSAC draws differ, so
-# it is held to registration noise: ATE <= 1.0 m (PERF.md "End-to-end
-# metrics" gives the seed spread behind the bound)
-MAX_LOST = 0
-ATE_BOUND_M = 1.0
+# bench.py:240's gates for the default configuration
+MAX_LOST, MIN_MEDIAN_INLIERS, MAX_T_ERR_PCT = 0, 300, 1.0
+# yardsticks, tpuslam (JAX) on the CPU on this sequence
+# (tools/port_yardstick.py): SlamConfig() with a Mapper, ATE 0.5191 m;
+# the slice configuration, ATE 0.5956 m.  The port draws its RANSAC
+# hypotheses from a torch.Generator, so it is held to registration noise;
+# PERF.md "End-to-end metrics" gives the seed spreads behind the bounds
+# (main path: 0.4727-0.5654 m over ten seeds on the card)
+ATE_BOUND_M = 0.75
+SLICE_ATE_BOUND_M = 1.0
 TIMING_RUNS = 20
+# K6 against its plain version: f32 reduction order (tests/test_pnp.py)
+LM_TOL = dict(rvec=1e-5, tvec=1e-4, inlier_px=2.0)
+# published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
+# 32-bit non-tensor operations/s, for the bound of each kernel
+HBM_BPS, OPS_32 = 3.35e12, 67e12
 
 
 def log(msg):
@@ -85,43 +109,95 @@ def max_abs_err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
+def bound(nbytes, ops):
+    """Least time in ms for moving `nbytes` and doing `ops` 32-bit
+    operations at the card's peaks, and which of the two sets it."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / OPS_32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def recording_refines(n_calls):
+    """Make the first `n_calls` calls of the LM-refine entry point that the
+    VO step and the loop-closure registration call record copies of their
+    arguments.  Returns (the recorded argument lists, restore)."""
+    from tpuslam_torch.kernels import pnp as P
+    orig = P.refine_lm_with_errors_auto
+    calls = []
+
+    def recording(*args):
+        if len(calls) < n_calls:
+            calls.append([a.clone() for a in args])
+        return orig(*args)
+
+    P.refine_lm_with_errors_auto = recording
+    return calls, lambda: setattr(P, "refine_lm_with_errors_auto", orig)
+
+
+def record(rows, name, src, replaces, kernel, plain, outs_k, outs_p,
+           nbytes, ops, tol=0.0):
+    """Hold a kernel's outputs to its plain version's within `tol`, time
+    both, and add the kernel's row to `rows`."""
+    err = max(max_abs_err(k, p) for k, p in zip(outs_k, outs_p))
+    if not err <= tol:
+        raise AssertionError(f"{name}: kernel differs from plain "
+                             f"version (max abs err {err} > {tol})")
+    b_ms, b_by = bound(nbytes, ops)
+    rows[name] = dict(name=name, route="cuda", source=src,
+                      replaces=replaces, max_abs_err=err,
+                      ms=time_ms(kernel), plain_ms=time_ms(plain),
+                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"# {name}: max abs err {err} (tolerance {tol}); kernel "
+        f"{rows[name]['ms']:.3f} ms, plain {rows[name]['plain_ms']:.3f}"
+        f" ms, bound {b_ms:.4f} ms ({b_by})")
+
+
 def kernel_phase(lefts, rights, cfg):
-    """Each kernel against its plain version on the card, at main-path
+    """K1-K5 against their plain versions on the card, at main-path
     shapes: the first 30-frame chunk of the rendered sequence."""
     from tpuslam_torch.kernels import stereo_bm as BM, gftt as G, orb as O
     from tpuslam_torch.vo import fused as F
     rows = {}
+    B, H, W = lefts.shape
+    px = B * H * W
 
-    def record(name, src, replaces, kernel, plain, outs_k, outs_p):
-        errs = [max_abs_err(k, p) for k, p in zip(outs_k, outs_p)]
-        err = max(errs)
-        if err != 0.0:
-            raise AssertionError(f"{name}: kernel differs from plain "
-                                 f"version (max abs err {err})")
-        rows[name] = dict(name=name, route="cuda", source=src,
-                          replaces=replaces, max_abs_err=err,
-                          ms=time_ms(kernel), plain_ms=time_ms(plain))
-        log(f"# {name}: equal to plain; kernel {rows[name]['ms']:.3f} ms, "
-            f"plain {rows[name]['plain_ms']:.3f} ms")
-
-    # K1: disparity and min-SAD of 30 frames
+    # K1: disparity and min-SAD of 30 frames.  Bound: the pair in (2 B),
+    # disparity and min-SAD out (4 B) per pixel; per pixel and disparity
+    # an absolute difference, two running-sum updates per box direction
+    # and a compare (6 operations)
     kb = BM.stereo_bm_cuda(lefts, rights, cfg.bm)
     pb = BM.stereo_bm_plain(lefts, rights, cfg.bm)
-    record("stereo_bm", "tpuslam_torch/csrc/stereo_bm.cu",
-           "tpuslam/kernels/stereo_bm_pallas.py:83",
+    record(rows, "stereo_bm", "tpuslam_torch/csrc/stereo_bm.cu",
+           "tpuslam/kernels/stereo_bm_pallas.py:423",
            lambda: BM.stereo_bm_cuda(lefts, rights, cfg.bm),
-           lambda: BM.stereo_bm_plain(lefts, rights, cfg.bm), kb, pb)
+           lambda: BM.stereo_bm_plain(lefts, rights, cfg.bm), kb, pb,
+           6 * px, 6 * cfg.bm.num_disparities * px)
     valid_px = float((pb[0] >= 0).float().mean())
     log(f"# stereo_bm: {valid_px:.3f} of pixels hold a disparity")
 
-    # K2: response (compared bit for bit) and dilation
+    # K5: the left-right check on K1's outputs.  Bound: disparity and
+    # min-SAD in, disparity out (6 B per pixel); ~20 integer operations
+    # per pixel for the projection and the two checks
+    kl = BM.lr_check_cuda(*kb, cfg.bm)
+    pl = BM.lr_check_plain(*pb, cfg.bm)
+    record(rows, "lr_check", "tpuslam_torch/csrc/lr_check.cu",
+           "tpuslam/kernels/stereo_bm_pallas.py:355",
+           lambda: BM.lr_check_cuda(*kb, cfg.bm),
+           lambda: BM.lr_check_plain(*pb, cfg.bm), (kl,), (pl,),
+           6 * px, 20 * px)
+    log(f"# lr_check: {int((kl != kb[0]).sum())} pixels invalidated")
+
+    # K2: response (compared bit for bit) and dilation.  Bound: image in
+    # (1 B), response and dilation out (8 B) per pixel; ~40 operations per
+    # pixel (Sobel pair, three products, three 3x3 box sums, the
+    # eigenvalue, the dilation)
     ke, kd = G.gftt_response_dil_cuda(lefts)
     pe, pd = G.gftt_response_dil_plain(lefts)
-    record("gftt", "tpuslam_torch/csrc/gftt.cu",
-           "tpuslam/kernels/gftt.py:85",
+    record(rows, "gftt", "tpuslam_torch/csrc/gftt.cu",
+           "tpuslam/kernels/gftt.py:195",
            lambda: G.gftt_response_dil_cuda(lefts),
            lambda: G.gftt_response_dil_plain(lefts),
-           (ke.view(torch.int32), kd), (pe.view(torch.int32), pd))
+           (ke.view(torch.int32), kd), (pe.view(torch.int32), pd),
+           9 * px, 40 * px)
     # the kernel path's raw-dilation candidate mask equals the plain
     # path's thresholded one
     thr = (pe.amax(dim=(1, 2)) * torch.tensor(
@@ -132,20 +208,27 @@ def kernel_phase(lefts, rights, cfg):
     if not torch.equal(m_plain, m_kern):
         raise AssertionError("gftt: raw-dilation mask != thresholded mask")
 
-    # K3: descriptors at the plain path's keypoints (computed on the host)
+    # K3: descriptors at the plain path's keypoints (computed on the host).
+    # Bound: the image in once (1 B per pixel), keypoints in (8 B) and
+    # descriptors out (32 B); a separable 7x7 blur of the image
+    # (28 operations per pixel) and 256 compares per keypoint
     kp, valid, n_k = F.detect_keypoints(lefts.cpu(), cfg)
     kp = kp[..., :2].contiguous().to(lefts.device)
     valid = valid.to(lefts.device)
     log(f"# keypoints per frame: min {int(n_k.min())}, "
         f"max {int(n_k.max())}")
+    nkp = int(n_k.sum())
     kdsc = O.orb_descriptors_cuda(lefts, kp, valid)
     pdsc = O.orb_descriptors_plain(lefts, kp, valid)
-    record("orb", "tpuslam_torch/csrc/orb.cu", "tpuslam/kernels/orb.py:183",
+    record(rows, "orb", "tpuslam_torch/csrc/orb.cu",
+           "tpuslam/kernels/orb.py:283",
            lambda: O.orb_descriptors_cuda(lefts, kp, valid),
            lambda: O.orb_descriptors_plain(lefts, kp, valid),
-           (kdsc,), (pdsc,))
+           (kdsc,), (pdsc,), px + 40 * nkp, 28 * px + 256 * nkp)
 
-    # K4: ties, +inf, all-masked and one-valid rows, N = capacity
+    # K4: ties, +inf, all-masked and one-valid rows, N = capacity.  Bound
+    # (timed row): two f32 rows and the mask in (9 B per entry), a few
+    # operations per entry for two selections
     rng = np.random.default_rng(SEED)
     n = CAPACITY
     a = np.abs(rng.normal(0, 10, (5, n))).astype(np.float32)
@@ -160,68 +243,228 @@ def kernel_phase(lefts, rights, cfg):
     km = F.masked_median2_cuda(a, b, m)
     pm = F.masked_median2_plain(a, b, m)
     one = (a[:1].contiguous(), b[:1].contiguous(), m[:1].contiguous())
-    record("median", "tpuslam_torch/csrc/median.cu",
-           "tpuslam/vo/fused.py:142",
+    record(rows, "median", "tpuslam_torch/csrc/median.cu",
+           "tpuslam/vo/fused.py:195",
            lambda: F.masked_median2_cuda(*one),
            lambda: F.masked_median2_plain(*one), km,
-           (pm[0], pm[1], pm[2].int()))
+           (pm[0], pm[1], pm[2].int()), 9 * n, 8 * n)
     return rows
 
 
-def main_path_phase(camera, cfg, lefts, rights, stamps, gt):
-    from tpuslam_torch.kernels import _cuda
-    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
-    from tpuslam_torch.geometry.kitti_metric import \
-        calc_kitti_sequence_errors
-    items = [dict(left=lefts[i], right=rights[i], stamp=stamps[i],
-                  ground_truth=gt[i]) for i in range(N_FRAMES)]
-    pipe = FastSlamPipeline(camera, cfg, chunk=CHUNK, capacity=CAPACITY,
-                            device="cuda", seed=SEED)
-    staged = pipe.stage_chunks(items)
-    t0 = time.perf_counter()
-    pipe.run_staged(staged, items)
-    log(f"# warm run: {time.perf_counter() - t0:.2f} s")
+def lm_phase(rows, frame1_args, camera, cfg):
+    """K6, the LM refine, against its plain version to LM_TOL: on the
+    arguments the main path's VO step gave it at frame 1 (timed), and on a
+    scene with a known pose.  Bound: per point obj, img, weight, valid in
+    and the error out (29 B); 21 evaluations of ~150 operations per
+    point."""
+    from tpuslam_torch.io.synthetic import pnp_scene
+    from tpuslam_torch.kernels import pnp as P
 
-    pipe.reset()
-    _cuda.reset_counters()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    infos = pipe.run_staged(staged, items)
-    dt = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
-    plain = dict(_cuda.PLAIN_CALLS)
-    log(f"# main path launches {launches}, plain calls {plain}")
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel did not run: {launches}")
-    if any(v != 0 for v in plain.values()):
-        raise AssertionError(f"a plain version ran: {plain}")
+    def lm_check(args, what):
+        kr, kt, ke_ = P.refine_lm_errors_cuda(*args)
+        pr, pt, pe_ = P.refine_lm_with_errors(*args)
+        thr_px = LM_TOL["inlier_px"]
+        if not torch.equal(ke_ <= thr_px, pe_ <= thr_px):
+            raise AssertionError(f"lm_refine ({what}): inlier sets at "
+                                 f"{thr_px} px differ")
+        for nm, x, y in (("rvec", kr, pr), ("tvec", kt, pt)):
+            if not max_abs_err(x, y) <= LM_TOL[nm]:
+                raise AssertionError(f"lm_refine ({what}): {nm} differs by "
+                                     f"{max_abs_err(x, y)}")
+        log(f"# lm_refine ({what}): rvec err {max_abs_err(kr, pr):.3g}, "
+            f"tvec err {max_abs_err(kt, pt):.3g}, weight sum "
+            f"{float(args[2].sum()):.0f}, {int((ke_ <= thr_px).sum())} "
+            f"inliers of {len(ke_)}")
+        return (kr, kt), (pr, pt)
 
+    scene, rv_true, tv_true = pnp_scene(np.random.default_rng(SEED),
+                                        CAPACITY, camera.K_l)
+    (kr, kt), _ = lm_check(scene, "known pose")
+    if not (np.abs(kr.cpu().numpy() - rv_true).max() < 2e-3 and
+            np.abs(kt.cpu().numpy() - tv_true).max() < 2e-2):
+        raise AssertionError("lm_refine: known pose not recovered")
+    args = [a.contiguous() for a in frame1_args]
+    if not float(args[2].sum()) >= cfg.pnp.min_inliers:
+        raise AssertionError("lm_refine: the recorded frame-1 call has "
+                             "too few weighted rows")
+    n_c = len(args[0])
+    outs_k, outs_p = lm_check(args, "main path, frame 1")
+    record(rows, "lm_refine", "tpuslam_torch/csrc/lm_refine.cu",
+           "tpuslam/kernels/pnp.py:1067",
+           lambda: P.refine_lm_errors_cuda(*args),
+           lambda: P.refine_lm_with_errors(*args), outs_k, outs_p,
+           29 * n_c, 21 * 150 * n_c, tol=LM_TOL["tvec"])
+
+
+def quality(infos, gt):
     est = np.stack([i.pose for i in infos])
     if len(infos) != N_FRAMES or not np.isfinite(est).all():
         raise AssertionError("poses missing or not finite")
-    lost = sum(1 for i in infos[1:] if i.lost)
+    from tpuslam_torch.geometry.kitti_metric import \
+        calc_kitti_sequence_errors
     inl = sorted(i.num_inliers for i in infos[1:])
-    ate = float(np.sqrt(np.mean(np.sum((est[:, :3, 3] - gt[:, :3, 3]) ** 2,
-                                       axis=1))))
     t_err, r_err = calc_kitti_sequence_errors(gt, est)
-    fps = N_FRAMES / dt
-    log(f"# main path: {N_FRAMES} frames {WIDTH}x{HEIGHT} in {dt:.3f} s = "
-        f"{fps:.3f} fps; lost={lost}, median inliers={inl[len(inl) // 2]}, "
-        f"min inliers={inl[0]}, ATE={ate:.4f} m, t_err={t_err:.4f} %, "
-        f"r_err={r_err:.6f} deg/m")
-    if lost > MAX_LOST:
-        raise AssertionError(f"lost {lost} frames (yardstick {MAX_LOST})")
-    if not ate <= ATE_BOUND_M:
-        raise AssertionError(f"ATE {ate} m above the bound {ATE_BOUND_M} m")
-    return launches
+    return dict(lost=sum(1 for i in infos[1:] if i.lost),
+                median_inliers=inl[len(inl) // 2], min_inliers=inl[0],
+                ate=float(np.sqrt(np.mean(np.sum(
+                    (est[:, :3, 3] - gt[:, :3, 3]) ** 2, axis=1)))),
+                t_err=t_err, r_err=r_err)
+
+
+def fmt(q):
+    return (f"lost={q['lost']}, median inliers={q['median_inliers']}, "
+            f"min inliers={q['min_inliers']}, ATE={q['ate']:.4f} m, "
+            f"t_err={q['t_err']:.4f} %, r_err={q['r_err']:.6f} deg/m")
+
+
+def timed_run(pipe, staged, items, gt, what, with_mapper, n_record=0):
+    """A warm run that records the arguments of the first `n_record`
+    LM-refine calls, then every counter reset and a timed run.  Returns
+    (quality, fps, launches, plain calls, mapper, recorded calls)."""
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.mapping.mapper import Mapper
+
+    def mapper():
+        if not with_mapper:
+            return None
+        mp = Mapper(pipe.camera, pipe.cfg.mapper, pipe.cfg.matching,
+                    pipe.cfg.pnp)
+        mp.async_lc = True
+        return mp
+
+    calls, restore = recording_refines(n_record)
+    t0 = time.perf_counter()
+    try:
+        pipe.run_staged(staged, items, mapper=mapper(),
+                        mapper_async=with_mapper)
+    finally:
+        restore()
+    log(f"# {what}: warm run {time.perf_counter() - t0:.2f} s")
+    pipe.reset()
+    mp = mapper()
+    _cuda.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    infos = pipe.run_staged(staged, items, mapper=mp,
+                            mapper_async=with_mapper)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+    q = quality(infos, gt)
+    log(f"# {what}: {N_FRAMES} frames {WIDTH}x{HEIGHT} in {dt:.3f} s = "
+        f"{N_FRAMES / dt:.3f} fps; {fmt(q)}")
+    log(f"# {what}: launches {launches}, plain calls {plain}")
+    return q, N_FRAMES / dt, launches, plain, mp, calls
+
+
+def main_path_phase(camera, cfg, staged, items, gt):
+    """bench.py's run: SlamConfig() with a Mapper (async LC, device
+    dictionary)."""
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    pipe = FastSlamPipeline(camera, cfg, chunk=CHUNK, capacity=CAPACITY,
+                            seed=SEED)
+    q, fps, launches, plain, mapper, calls = timed_run(
+        pipe, staged, items, gt, "main path", with_mapper=True, n_record=2)
+    missing = [k for k in _cuda.KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
+    if any(v != 0 for v in plain.values()):
+        raise AssertionError(f"a plain version ran: {plain}")
+    log(f"# mapper: {len(mapper.nodes)} nodes, {mapper.vwd._count} words, "
+        f"{len(mapper.loop_closures)} loop closures")
+    if len(mapper.nodes) != N_FRAMES or not mapper.vwd._count > 0:
+        raise AssertionError("the Mapper lacks a node per frame or words")
+    if q["lost"] > MAX_LOST or q["median_inliers"] < MIN_MEDIAN_INLIERS \
+            or not q["t_err"] <= MAX_T_ERR_PCT:
+        raise AssertionError(f"bench gates failed: {fmt(q)}")
+    if not q["ate"] <= ATE_BOUND_M:
+        raise AssertionError(f"ATE {q['ate']} m above the bound "
+                             f"{ATE_BOUND_M} m")
+    # the VO step refines once per frame: call 1 is frame 1's
+    return mapper, launches, fps, calls[1]
+
+
+def post_loop_phase(mapper, camera, cfg, gt):
+    """bench.py:220-239: robust pose graph, then global BA."""
+    from tpuslam_torch.geometry.kitti_metric import \
+        calc_kitti_sequence_errors
+    from tpuslam_torch.mapping.ba_window import refine_trajectory_global_ba
+    from tpuslam_torch.optim import run_optimize_robust
+    t0 = time.perf_counter()
+    poses, links = mapper.get_graph()
+    if not poses or not len(links):
+        raise AssertionError("the Mapper's graph is empty")
+    optimized, chi2 = run_optimize_robust(poses, links, 20, cfg.optimizer)
+    t1 = time.perf_counter()
+    ba_poses = refine_trajectory_global_ba(mapper, optimized, camera)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ids = sorted(optimized)
+    gt_n = gt[[i - 1 for i in ids]]
+    for name, pd in (("posegraph", optimized), ("ba", ba_poses)):
+        est_n = np.stack([pd[i] for i in ids])
+        if not np.isfinite(est_n).all():
+            raise AssertionError(f"{name}: poses not finite")
+        ate = float(np.sqrt(np.mean(np.sum(
+            (est_n[:, :3, 3] - gt_n[:, :3, 3]) ** 2, axis=1))))
+        te, re_ = calc_kitti_sequence_errors(gt_n, est_n)
+        log(f"# {name}: ATE={ate:.4f} m, t_err={te:.4f} %, "
+            f"r_err={re_:.6f} deg/m")
+    log(f"# post-loop: {len(poses)} nodes, {len(links)} links, chi2 "
+        f"{chi2:.6g}; pose graph {t1 - t0:.2f} s, global BA "
+        f"{t2 - t1:.2f} s (host wall)")
+
+
+def slice_phase(camera, staged, items, gt):
+    """The first slice's path: no LR check, no LM refine, no Mapper."""
+    from tpuslam_torch.config import SlamConfig, StereoBMConfig, PnPConfig
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    cfg = SlamConfig().replace(bm=StereoBMConfig(disp12_max_diff=-1),
+                               pnp=PnPConfig(refine_iterations=0))
+    pipe = FastSlamPipeline(camera, cfg, chunk=CHUNK, capacity=CAPACITY,
+                            seed=SEED)
+    q, fps, launches, plain, _, _ = timed_run(
+        pipe, staged, items, gt, "slice path", with_mapper=False)
+    need = ("stereo_bm", "gftt", "orb", "median")
+    if any(launches[k] == 0 for k in need) or any(plain.values()):
+        raise AssertionError(f"slice path: launches {launches}, plain "
+                             f"{plain}")
+    if q["lost"] > MAX_LOST or not q["ate"] <= SLICE_ATE_BOUND_M:
+        raise AssertionError(f"slice path quality: {fmt(q)}")
+    return fps
+
+
+def spread_phase(camera, cfg, staged, items, gt, n):
+    """The main path with RANSAC seeds 1..n (quality only)."""
+    from tpuslam_torch.mapping.mapper import Mapper
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    ates = []
+    for seed in range(1, n + 1):
+        pipe = FastSlamPipeline(camera, cfg, chunk=CHUNK, capacity=CAPACITY,
+                                seed=seed)
+        mp = Mapper(camera, cfg.mapper, cfg.matching, cfg.pnp)
+        mp.async_lc = True
+        t0 = time.perf_counter()
+        infos = pipe.run_staged(staged, items, mapper=mp, mapper_async=True)
+        dt = time.perf_counter() - t0
+        q = quality(infos, gt)
+        ates.append(q["ate"])
+        log(f"# spread seed {seed}: {N_FRAMES / dt:.3f} fps; {fmt(q)}")
+    log(f"# spread over {n} seeds: ATE {min(ates):.4f}-{max(ates):.4f} m")
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--spread", type=int, default=0)
+    args = ap.parse_args()
     smi = device_phase()
     import tpuslam_torch  # noqa: F401  (applies the precision pin)
     from tpuslam_torch.kernels import _cuda
-    from tpuslam_torch.config import SlamConfig, StereoBMConfig, PnPConfig
+    from tpuslam_torch.config import SlamConfig
     from tpuslam_torch.io.synthetic import make_sequence, sequence_camera
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
 
     t0 = time.perf_counter()
     took = _cuda.build_all()
@@ -230,13 +473,10 @@ def main():
     log(f"# build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
 
-    # the slice: no left-right check, no LM refine (ROADMAP B2, B5)
-    cfg = SlamConfig().replace(bm=StereoBMConfig(disp12_max_diff=-1),
-                               pnp=PnPConfig(refine_iterations=0))
+    cfg = SlamConfig()       # bench.py's configuration, unchanged
     t0 = time.perf_counter()
     lefts, rights, stamps, gt = make_sequence(
-        N_FRAMES, WIDTH, HEIGHT, FOCAL, BASELINE, SPEED, YAW, SEED,
-        device="cuda")
+        N_FRAMES, WIDTH, HEIGHT, FOCAL, BASELINE, SPEED, YAW, SEED)
     torch.cuda.synchronize()
     log(f"# rendered {N_FRAMES} stereo pairs on the card in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -244,13 +484,29 @@ def main():
 
     rows = kernel_phase(lefts[:CHUNK].contiguous(),
                         rights[:CHUNK].contiguous(), cfg)
-    launches = main_path_phase(camera, cfg, lefts, rights, stamps, gt)
+    items = [dict(left=lefts[i], right=rights[i], stamp=stamps[i],
+                  ground_truth=gt[i]) for i in range(N_FRAMES)]
+    staged = FastSlamPipeline(camera, cfg, chunk=CHUNK,
+                              capacity=CAPACITY).stage_chunks(items)
+    mapper, launches, fps, frame1_args = main_path_phase(
+        camera, cfg, staged, items, gt)
+    lm_phase(rows, frame1_args, camera, cfg)
+    post_loop_phase(mapper, camera, cfg, gt)
+    slice_fps = slice_phase(camera, staged, items, gt)
+    log(f"# fps: default configuration + Mapper {fps:.3f}, slice "
+        f"{slice_fps:.3f}")
+    if args.spread:
+        spread_phase(camera, cfg, staged, items, gt, args.spread)
+
     for name, row in rows.items():
         row["launches"] = launches[name]
-    kernels = [{k: rows[n][k] for k in ("name", "route", "source",
-                                        "replaces", "launches",
-                                        "max_abs_err", "ms", "plain_ms")}
-               for n in _cuda.KERNELS]
+        if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms",
+                                                    "bound_ms")):
+            raise AssertionError(f"{name}: a time is not finite: {row}")
+    kernels = [{k: rows[n][k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for n in _cuda.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

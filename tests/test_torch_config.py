@@ -25,7 +25,8 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["config.py", "geometry/transform.py", "geometry/camera.py",
-          "geometry/kitti_metric.py", "vo/frame.py"]
+          "geometry/kitti_metric.py", "vo/frame.py", "mapping/graph.py"]
+KERNELS = ["stereo_bm", "gftt", "orb", "median", "lr_check", "lm_refine"]
 
 
 def _code_without_docstrings(path):
@@ -149,7 +150,10 @@ def test_import_leaves_jax_out():
     """Importing the port, its main path included, loads no JAX."""
     code = ("import sys; import tpuslam_torch; "
             "import tpuslam_torch.runtime.fast_pipeline, "
-            "tpuslam_torch.io.synthetic, tpuslam_torch.convert; "
+            "tpuslam_torch.io.synthetic, tpuslam_torch.convert, "
+            "tpuslam_torch.mapping.mapper, tpuslam_torch.mapping.ba_window, "
+            "tpuslam_torch.mapping.chunk_dict, tpuslam_torch.optim, "
+            "tpuslam_torch.optim.ba; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuslam' or "
             "m.startswith('tpuslam.')]; assert not bad, bad")
@@ -181,9 +185,10 @@ def test_precision_pinned():
 
 
 def _kernel_cases():
-    """name -> (kernel wrapper, dispatcher, CPU arguments) for K1-K4."""
+    """name -> (kernel wrapper, dispatcher, CPU arguments) for K1-K6."""
     from tpuslam_torch.config import StereoBMConfig
     from tpuslam_torch.kernels import stereo_bm as BM, gftt as G, orb as O
+    from tpuslam_torch.kernels import pnp as P
     from tpuslam_torch.vo import fused as F
     img = torch.zeros((1, 40, 48), dtype=torch.uint8)
     img[:, 10:20, 12:30] = 200
@@ -193,6 +198,12 @@ def _kernel_cases():
     valid = torch.ones((1, 8), dtype=torch.bool)
     a = torch.rand(1, 32)
     m = torch.rand(1, 32) < 0.5
+    disp = torch.full((1, 40, 48), 80, dtype=torch.int16)
+    minsad = torch.zeros((1, 40, 48), dtype=torch.int16)
+    obj = torch.rand(16, 3) + torch.tensor([0.0, 0.0, 5.0])
+    lm = (obj, torch.rand(16, 2) * 100, torch.ones(16),
+          torch.ones(16, dtype=torch.bool), torch.eye(3), torch.zeros(3),
+          torch.zeros(3))
     return {
         "stereo_bm": (BM.stereo_bm_cuda, BM.stereo_bm, (img, img, cfg)),
         "gftt": (G.gftt_response_dil_cuda,
@@ -200,10 +211,14 @@ def _kernel_cases():
         "orb": (O.orb_descriptors_cuda, O.orb_descriptors_const_angle,
                 (img, kp, valid)),
         "median": (F.masked_median2_cuda, F.masked_median2, (a, a, m)),
+        "lr_check": (BM.lr_check_cuda, BM.lr_check,
+                     (disp, minsad, StereoBMConfig())),
+        "lm_refine": (P.refine_lm_errors_cuda, P.refine_lm_with_errors_auto,
+                      lm),
     }
 
 
-@pytest.mark.parametrize("name", ["stereo_bm", "gftt", "orb", "median"])
+@pytest.mark.parametrize("name", KERNELS)
 def test_kernel_wrapper_refuses_cpu_tensors(name):
     """A kernel wrapper checks its arguments before any build or launch."""
     from tpuslam_torch.kernels import _cuda
@@ -214,7 +229,7 @@ def test_kernel_wrapper_refuses_cpu_tensors(name):
     assert _cuda.LAUNCHES[name] == 0
 
 
-@pytest.mark.parametrize("name", ["stereo_bm", "gftt", "orb", "median"])
+@pytest.mark.parametrize("name", KERNELS)
 def test_dispatch_takes_plain_version_on_cpu(name):
     """On a CPU tensor the dispatcher runs the plain version (counted
     once) and launches nothing."""
@@ -224,3 +239,55 @@ def test_dispatch_takes_plain_version_on_cpu(name):
     dispatch(*args)
     assert _cuda.PLAIN_CALLS[name] == 1
     assert sum(_cuda.LAUNCHES.values()) == 0
+
+
+def test_kernel_table_names_every_kernel():
+    from tpuslam_torch.kernels import _cuda
+    assert list(_cuda.KERNELS) == KERNELS
+    assert set(_cuda.SIGNATURES) == set(KERNELS)
+    for name in KERNELS:
+        assert os.path.exists(os.path.join(ROOT, "tpuslam_torch", "csrc",
+                                           f"{name}.cu"))
+
+
+def _entry_points():
+    from tpuslam_torch import convert
+    from tpuslam_torch.io.synthetic import make_sequence
+    from tpuslam_torch.kernels.pnp import solve_pnp_ransac
+    from tpuslam_torch.mapping import ba_window
+    from tpuslam_torch.mapping.chunk_dict import ChunkDictDriver
+    from tpuslam_torch.mapping.dictionary import VWDictionary
+    from tpuslam_torch.mapping.mapper import Mapper
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    from tpuslam_torch.vo import fused, registration
+    return {
+        "FastSlamPipeline": FastSlamPipeline.__init__,
+        "make_sequence": make_sequence,
+        "make_frontend_fn": fused.make_frontend_fn,
+        "make_fused_chunk_fn": fused.make_fused_chunk_fn,
+        "carry_from_reference": convert.carry_from_reference,
+        "dictionary_from_reference": convert.dictionary_from_reference,
+        "Mapper": Mapper.__init__,
+        "VWDictionary": VWDictionary.__init__,
+        "ChunkDictDriver": ChunkDictDriver.__init__,
+        "compute_transform": registration.compute_transform,
+        "solve_pnp_ransac": solve_pnp_ransac,
+        "refine_trajectory_ba": ba_window.refine_trajectory_ba,
+        "refine_trajectory_global_ba": ba_window.refine_trajectory_global_ba,
+    }
+
+
+@pytest.mark.parametrize("name", ["FastSlamPipeline", "make_sequence",
+                                  "make_frontend_fn", "make_fused_chunk_fn",
+                                  "carry_from_reference",
+                                  "dictionary_from_reference", "Mapper",
+                                  "VWDictionary", "ChunkDictDriver",
+                                  "compute_transform", "solve_pnp_ransac",
+                                  "refine_trajectory_ba",
+                                  "refine_trajectory_global_ba"])
+def test_entry_point_defaults_to_the_card(name):
+    """Every entry point runs on the card unless the caller asks for the
+    CPU (read from the signature: nothing is built here)."""
+    import inspect
+    fn = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

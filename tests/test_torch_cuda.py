@@ -1,4 +1,4 @@
-"""Kernels K1-K4 against their plain PyTorch versions, on the card.
+"""Kernels K1-K6 against their plain PyTorch versions, on the card.
 
 Runs only where a CUDA device and nvcc are present (skipped elsewhere),
 and imports neither JAX nor tpuslam, so on a GPU machine without JAX it
@@ -6,9 +6,14 @@ runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Each kernel must equal its plain version exactly (bit for bit for the
-f32 GFTT response).  The inputs are the repository's real 640x480 stereo
-fixture, cropped to the bench's 376 rows.
+K1-K5 must equal their plain versions exactly (bit for bit for the f32
+GFTT response); K6, the LM refine, agrees with its plain version to f32
+reduction order: rvec 1e-5, tvec 1e-4 and the same inliers at 2 px (the
+JAX suite's Pallas-vs-XLA tolerance, tests/test_pnp.py:127-133).  The
+image inputs are the repository's real 640x480 stereo fixture, cropped to
+the bench's 376 rows.  Two end-to-end tests check through the launch
+counters that the default configuration's chunk step, and a Mapper run
+whose loop closure fires, launch the kernels and no plain version.
 """
 
 import os
@@ -93,6 +98,37 @@ def test_median_kernel(pair):
     assert torch.equal(k[2].long(), p[2])
 
 
+def test_lr_check_kernel(pair):
+    from tpuslam_torch.config import StereoBMConfig
+    from tpuslam_torch.kernels import stereo_bm as T
+    cfg = StereoBMConfig()
+    disp, minsad = T.stereo_bm_cuda(*pair, cfg)
+    k = T.lr_check_cuda(disp, minsad, cfg)
+    p = T.lr_check_plain(disp, minsad, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    assert 0 < int((k != disp).sum()) < 0.05 * disp.numel()
+
+
+@pytest.mark.parametrize("case", ["perturbed", "zero_rvec", "capacity"])
+def test_lm_refine_kernel(pair, case):
+    from tpuslam_torch.io.synthetic import pnp_scene
+    from tpuslam_torch.kernels import pnp as T
+    rng = np.random.default_rng(11)
+    n = 1536 if case == "capacity" else 300
+    K = np.array([[718.856, 0.0, 607.1928], [0.0, 718.856, 185.2157],
+                  [0.0, 0.0, 1.0]])
+    args, _, _ = pnp_scene(rng, n, K,
+                           np.zeros(3) if case == "zero_rvec" else None)
+    rk, tk, ek = T.refine_lm_errors_cuda(*args)
+    rp, tp, ep = T.refine_lm_with_errors(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(rk, rp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(tk, tp, rtol=0, atol=1e-4)
+    assert torch.equal(ek <= 2.0, ep <= 2.0)
+    assert int((ek <= 2.0).sum()) > 0.6 * n
+
+
 def test_dispatch_counts_kernels_not_plain(pair):
     from tpuslam_torch.kernels import _cuda
     from tpuslam_torch.vo.fused import make_frontend_fn, FusedShapes
@@ -105,3 +141,69 @@ def test_dispatch_counts_kernels_not_plain(pair):
     assert all(_cuda.LAUNCHES[k] == 1 for k in ("stereo_bm", "gftt", "orb"))
     assert not any(_cuda.PLAIN_CALLS.values())
     assert int(out["n_kpts"].min()) > 100
+
+
+def test_mapper_loop_closure_runs_kernels():
+    """FastSlamPipeline.run_staged with a Mapper on the card, async loop
+    closure and the device dictionary, in test_torch_mapping.py's
+    configuration (12 frames, a short-term memory of 2 full nodes, a low
+    loop threshold), so that loop closure fires: its registration launches
+    K6 beyond the VO step's once per frame, and no plain version runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.config import SlamConfig, MapperConfig
+    from tpuslam_torch.io.synthetic import make_sequence, sequence_camera
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.mapping.mapper import Mapper
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    n = 12
+    lefts, rights, stamps, _ = make_sequence(n, 320, 240, 250.0, 0.54, 0.4,
+                                             0.002, seed=3)
+    cfg = SlamConfig().replace(mapper=MapperConfig(
+        map_update=2, max_stm_size=2, loop_thr=0.05))
+    cam = sequence_camera(320, 240, 250.0, 0.54)
+    mapper = Mapper(cam, cfg.mapper, cfg.matching, cfg.pnp)
+    mapper.async_lc = True
+    pipe = FastSlamPipeline(cam, cfg, chunk=6, capacity=384)
+    items = [dict(left=lefts[i], right=rights[i], stamp=stamps[i])
+             for i in range(n)]
+    staged = pipe.stage_chunks(items)
+    _cuda.reset_counters()
+    infos = pipe.run_staged(staged, items, mapper=mapper, mapper_async=True)
+    torch.cuda.synchronize()
+    assert not any(i.lost for i in infos)
+    assert mapper.loop_closures
+    assert len(mapper.nodes) == n and mapper.vwd._count > 0
+    assert all(_cuda.LAUNCHES[k] > 0 for k in _cuda.KERNELS)
+    assert _cuda.LAUNCHES["lm_refine"] >= n + len(mapper.loop_closures)
+    assert not any(_cuda.PLAIN_CALLS.values())
+
+
+def test_default_config_chunk_runs_all_kernels():
+    """The fused chunk step in SlamConfig() on the card: K1-K3 and K5 once
+    per chunk, K4 and K6 once per frame, no plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.config import SlamConfig
+    from tpuslam_torch.io.synthetic import make_sequence, sequence_camera
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.vo.fused import make_fused_chunk_fn, FusedShapes
+    B = 4
+    lefts, rights, _, _ = make_sequence(B, 640, 376, 500.0, 0.54, 0.5,
+                                        0.004, seed=5)
+    init, step, _ = make_fused_chunk_fn(
+        sequence_camera(640, 376, 500.0, 0.54), SlamConfig(),
+        FusedShapes(chunk=B, capacity=1024))
+    _cuda.reset_counters()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    dts = torch.full((B,), 0.1, device="cuda")
+    dts[0] = 0.0
+    _, outs, _ = step(init(), lefts, rights, dts,
+                      torch.ones(B, dtype=torch.bool, device="cuda"),
+                      torch.rand((B, 300, 6), generator=gen, device="cuda"))
+    torch.cuda.synchronize()
+    assert not outs["lost"][1:].any()
+    assert dict(_cuda.LAUNCHES) == dict(stereo_bm=1, gftt=1, orb=1,
+                                        median=B, lr_check=1, lm_refine=B)
+    assert not any(_cuda.PLAIN_CALLS.values())

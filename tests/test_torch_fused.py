@@ -1,9 +1,10 @@
 """tpuslam_torch fused VO and chunk driver against tpuslam's.
 
-The whole slice: FastSlamPipeline on test_fast_pipeline.py's 320x240
-12-frame synthetic sequence (chunk 6, capacity 384), in the slice
-configuration (no left-right check, no LM refine), with tpuslam's own
-RANSAC draws injected into the port.  Both read the same decoded frames.
+FastSlamPipeline on test_fast_pipeline.py's 320x240 12-frame synthetic
+sequence (chunk 6, capacity 384), in the default configuration
+(SlamConfig(): left-right check and one LM refine round) and in the first
+slice's configuration (neither), with tpuslam's own RANSAC draws injected
+into the port.  Both read the same decoded frames.
 Tolerances: the lost and keyframe flags must be equal; inlier counts may
 differ by 2 and per-frame translations by 1e-3 m — registration noise
 from f32 reduction order and the XLA CPU backend's FMA contraction in the
@@ -36,11 +37,19 @@ def _jax_draws(frame):
     return np.array(jax.random.uniform(jax.random.PRNGKey(frame), (300, 6)))
 
 
-def _slice_cfg():
-    cfg = SlamConfig().replace(bm=StereoBMConfig(disp12_max_diff=-1),
-                               pnp=PnPConfig(refine_iterations=0))
+def _small_map(cfg):
     return dataclasses.replace(
         cfg, mapper=MapperConfig(map_update=2, max_stm_size=5))
+
+
+def _slice_cfg():
+    return _small_map(SlamConfig().replace(
+        bm=StereoBMConfig(disp12_max_diff=-1),
+        pnp=PnPConfig(refine_iterations=0)))
+
+
+def _default_cfg():
+    return _small_map(SlamConfig())
 
 
 @pytest.fixture(scope="module")
@@ -68,11 +77,13 @@ def _camera(items):
     return StereoCameraModel(P_l=P0, P_r=P1, width=w, height=h)
 
 
-def _port_pipe(items, **kw):
+def _port_pipe(items, cfg=None, **kw):
     from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
     return FastSlamPipeline(convert.camera_from_reference(_camera(items)),
-                            convert.config_from_reference(_slice_cfg()),
-                            chunk=6, capacity=384, draws_fn=_jax_draws, **kw)
+                            convert.config_from_reference(
+                                cfg or _slice_cfg()),
+                            chunk=6, capacity=384, draws_fn=_jax_draws,
+                            device="cpu", **kw)
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +133,7 @@ def test_chunk2_from_reference_carry(reference_run, fwd_seq):
     (convert.carry_from_reference): chunk 2 agrees."""
     ref, carry1 = reference_run
     pipe = _port_pipe(fwd_seq)
-    pipe.carry = convert.carry_from_reference(carry1, pipe.device)
+    pipe.carry = convert.carry_from_reference(carry1, "cpu")
     pipe._frames = 6
     pipe._prev_stamp = float(fwd_seq[5]["stamp"])
     got = pipe.run(fwd_seq[6:])
@@ -145,23 +156,50 @@ def test_staged_sync_and_async_identical(fwd_seq, port_run):
         assert x.num_inliers == y.num_inliers == z.num_inliers
 
 
-@pytest.mark.parametrize("case", ["lr", "refine", "speckle", "sgbm",
-                                  "mapper"])
+@pytest.mark.parametrize("case", ["speckle", "sgbm"])
 def test_unported_paths_raise(fwd_seq, case):
     from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
     from tpuslam_torch import config as C
-    cfg = convert.config_from_reference(_slice_cfg())
+    cfg = convert.config_from_reference(_default_cfg())
     cam = convert.camera_from_reference(_camera(fwd_seq))
-    bad = {"lr": cfg.replace(bm=C.StereoBMConfig()),
-           "refine": cfg.replace(pnp=C.PnPConfig()),
-           "speckle": cfg.replace(fused_speckle=True),
+    bad = {"speckle": cfg.replace(fused_speckle=True),
            "sgbm": cfg.replace(depth_method=C.DepthMethod.SGBM)}
     with pytest.raises(NotImplementedError):
-        if case == "mapper":
-            FastSlamPipeline(cam, cfg, chunk=6, capacity=384).run(
-                fwd_seq[:6], mapper=object())
-        else:
-            FastSlamPipeline(cam, bad[case], chunk=6, capacity=384)
+        FastSlamPipeline(cam, bad[case], chunk=6, capacity=384,
+                         device="cpu")
+
+
+@pytest.fixture(scope="module")
+def default_runs(fwd_seq):
+    """tpuslam and the port in SlamConfig() over all 12 frames, and the
+    port's plain-version counts."""
+    from tpuslam.runtime.fast_pipeline import FastSlamPipeline
+    from tpuslam_torch.kernels import _cuda
+    ref = FastSlamPipeline(_camera(fwd_seq), _default_cfg(), chunk=6,
+                           capacity=384).run(fwd_seq)
+    _cuda.reset_counters()
+    got = _port_pipe(fwd_seq, _default_cfg()).run(fwd_seq)
+    return got, ref, dict(_cuda.PLAIN_CALLS)
+
+
+def test_default_config_matches_reference(default_runs, fwd_seq):
+    """The left-right check and the refine round on: flags equal,
+    inliers within 2, translations within 1e-3 m of tpuslam's."""
+    got, ref, _ = default_runs
+    _assert_close_runs(got, ref)
+    assert not any(i.lost for i in got[1:])
+    err = np.linalg.norm(got[-1].pose[:3, 3] -
+                         fwd_seq[-1]["ground_truth"][:3, 3])
+    assert err < 0.10, err
+
+
+def test_default_config_takes_every_plain_version(default_runs):
+    """On the CPU the default run goes through the plain version of every
+    kernel: StereoBM, the LR check, GFTT and ORB once per chunk, the
+    medians and the LM refine once per frame (one refine round)."""
+    plain = default_runs[2]
+    assert plain == dict(stereo_bm=2, gftt=2, orb=2, median=12,
+                         lr_check=2, lm_refine=12)
 
 
 MEDIAN_CASES = [(1536, 0.5, False), (1536, 0.0, False), (100, 0.9, False),

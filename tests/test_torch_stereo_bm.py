@@ -94,8 +94,76 @@ def test_batch_dispatch_uses_plain_on_cpu(stereo_pair):
 
 
 def test_lr_check_raises(stereo_pair):
+    """The K5 wrapper checks its arguments before any build or launch: a
+    CPU tensor and mismatched shapes are refused."""
+    from tpuslam_torch.kernels import _cuda
     left, right = _pair(stereo_pair, 64)
-    lb, rb = torch.as_tensor(left)[None], torch.as_tensor(right)[None]
-    with pytest.raises(NotImplementedError, match="B2"):
-        T.stereo_bm(lb, rb, StereoBMConfig())            # LR check on
+    disp, minsad = T.stereo_bm_plain(torch.as_tensor(left)[None],
+                                     torch.as_tensor(right)[None],
+                                     StereoBMConfig())
+    _cuda.reset_counters()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        T.lr_check_cuda(disp, minsad, StereoBMConfig())
+    with pytest.raises(ValueError):
+        T.lr_check_cuda(disp, minsad[:, :32], StereoBMConfig())
+    assert _cuda.LAUNCHES["lr_check"] == 0
 
+
+def _lr_ref(disp, minsad, **kw):
+    import jax
+    import jax.numpy as jnp
+    lr = jax.jit(J._lr_consistency, static_argnums=2)
+    return np.asarray(lr(jnp.asarray(disp, jnp.int32),
+                         jnp.asarray(minsad, jnp.int32),
+                         JCfg(**kw))).astype(np.int16)
+
+
+def _lr_port(disp, minsad, **kw):
+    return T._lr_consistency(torch.as_tensor(disp)[None],
+                             torch.as_tensor(minsad)[None],
+                             StereoBMConfig(**kw))[0].numpy()
+
+
+@pytest.mark.parametrize("rows", [None, 376])
+def test_lr_consistency_bit_equal(stereo_pair, rows):
+    """The plain version of K5 against tpuslam's _lr_consistency (the XLA
+    twin of the Pallas _lr_kernel) on the fixture's StereoBM output."""
+    left, right = _pair(stereo_pair, rows)
+    disp, minsad = _port(left, right)
+    ref = _lr_ref(disp, minsad)
+    got = _lr_port(disp, minsad)
+    np.testing.assert_array_equal(got, ref)
+    assert 0 < (got != disp).sum() < 0.05 * disp.size   # it does filter
+
+
+@pytest.mark.parametrize("max_diff", [0, 1, 3])
+def test_lr_consistency_occlusions(rng, max_diff):
+    """A textured background at disparity 8 behind a box at disparity 24:
+    the box occludes background pixels in the right view, which the check
+    invalidates; equal to tpuslam's bit for bit."""
+    h, w = 64, 200
+    bg = rng.integers(0, 256, (h, w + 40), dtype=np.uint8)
+    fg = rng.integers(0, 256, (h, w + 40), dtype=np.uint8)
+    left = bg[:, 8:8 + w].copy()
+    right = bg[:, :w].copy()
+    left[16:48, 100:150] = fg[16:48, 124:174]
+    right[16:48, 76:126] = fg[16:48, 124:174]
+    kw = dict(disp12_max_diff=max_diff)
+    disp, minsad = _port(left, right)
+    got = _lr_port(disp, minsad, **kw)
+    np.testing.assert_array_equal(got, _lr_ref(disp, minsad, **kw))
+    assert (got != disp).any()
+
+
+@pytest.mark.parametrize("rows", [None, 376])
+def test_default_config_bit_equal(stereo_pair, rows):
+    """stereo_bm in SlamConfig()'s StereoBM settings (LR check on) on the
+    CPU equals tpuslam's stereo_bm without speckle."""
+    from tpuslam.config import SlamConfig as JSlam
+    from tpuslam_torch.config import SlamConfig
+    left, right = _pair(stereo_pair, rows)
+    ref = np.asarray(J.stereo_bm(left, right, JSlam().bm,
+                                 with_speckle=False))
+    got = T.stereo_bm(torch.as_tensor(left)[None],
+                      torch.as_tensor(right)[None], SlamConfig().bm)
+    np.testing.assert_array_equal(got[0].numpy(), ref)

@@ -59,7 +59,7 @@ def test_sequence_matches_written_files(tmp_path):
                             os.path.join(out, "image_1"),
                             os.path.join(out, "times.txt"),
                             os.path.join(out, "poses.txt"))
-    left, right, stamps, gt = T.make_sequence(**kw)
+    left, right, stamps, gt = T.make_sequence(**kw, device="cpu")
     assert left.shape == right.shape == (3, 64, 96)
     assert left.dtype == torch.uint8
     for i in range(3):

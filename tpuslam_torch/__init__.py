@@ -10,10 +10,14 @@ Layer map:
   config      — the reference constants (copy of tpuslam.config)
   geometry    — SE3 transforms, stereo camera model, KITTI metric (copies)
   io          — the synthetic box-world sequence, rendered in torch
-  kernels     — StereoBM, GFTT, ORB, matching, EPnP-RANSAC; each hand-
-                written CUDA kernel sits beside its plain PyTorch version
+  kernels     — StereoBM and its LR check, GFTT, ORB, matching,
+                EPnP-RANSAC and the LM refine; each hand-written CUDA
+                kernel sits beside its plain PyTorch version
   vo          — the fused chunk VO (front end batched over the chunk, then
-                the per-frame VO state machine)
+                the per-frame VO state machine) and registration
+  mapping     — the Mapper: dictionary, chunk dictionary, loop closure,
+                pose-graph data, BA windows
+  optim       — the pose graph (host f64) and bundle adjustment
   runtime     — the chunk driver (FastSlamPipeline)
   csrc        — the CUDA C++ sources, built at first use by nvcc
 """

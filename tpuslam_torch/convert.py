@@ -1,9 +1,10 @@
 """Carry state across from the JAX package.
 
 SLAM has no learned weights: its parameters are the configuration, the
-camera and, between chunks, the VO carry.  These helpers take tpuslam's
-objects (duck-typed: this module never imports tpuslam or JAX) and build
-the port's, so a test can start both implementations from one state.
+camera, between chunks the VO carry, and the map: the visual-word
+dictionary and the pose graph.  These helpers take tpuslam's objects
+(duck-typed: this module never imports tpuslam or JAX) and build the
+port's, so a test can start both implementations from one state.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import torch
 
 from . import config as _config
 from .geometry.camera import StereoCameraModel
+from .mapping.dictionary import VisualWord, VWDictionary
+from .mapping.graph import Link, MultiMap
 
 # VO carry field -> torch dtype (see vo/fused.py init_carry)
 CARRY_DTYPES = {
@@ -51,7 +54,7 @@ def camera_from_reference(cam) -> StereoCameraModel:
                              width=int(cam.width), height=int(cam.height))
 
 
-def carry_from_reference(carry_np: dict, device="cpu") -> dict:
+def carry_from_reference(carry_np: dict, device="cuda") -> dict:
     """JAX fused-VO carry, as a dict of numpy arrays -> the port's carry
     of tensors on `device`."""
     missing = set(CARRY_DTYPES) - set(carry_np)
@@ -59,3 +62,31 @@ def carry_from_reference(carry_np: dict, device="cpu") -> dict:
         raise KeyError(f"carry lacks {sorted(missing)}")
     return {k: torch.as_tensor(np.array(carry_np[k])).to(
         device=device, dtype=dt) for k, dt in CARRY_DTYPES.items()}
+
+
+def dictionary_from_reference(vwd, device="cuda") -> VWDictionary:
+    """tpuslam VWDictionary -> the port's: train rows, row word ids, count,
+    last word id and every word with its references."""
+    out = VWDictionary(vwd.nndr, device)
+    out._capacity = int(vwd._capacity)
+    out._train = np.array(vwd._train, np.float32)
+    out._word_ids = np.array(vwd._word_ids, np.int64)
+    out._count = int(vwd._count)
+    out._last_word_id = int(vwd._last_word_id)
+    for wid, w in vwd.words.items():
+        vw = VisualWord(int(w.id), np.array(w.descriptor), 0)
+        vw.references = {int(k): int(v) for k, v in w.references.items()}
+        vw.total_references = int(w.total_references)
+        out.words[int(wid)] = vw
+    return out
+
+
+def graph_from_reference(poses: dict, links) -> tuple[dict, MultiMap]:
+    """A tpuslam pose graph (Mapper.get_graph(): node id -> 4x4 pose, and
+    its MultiMap of Links) -> the port's, as numpy."""
+    out = MultiMap()
+    for key, link in links.items():
+        out.insert(int(key), Link(int(link.from_id), int(link.to_id),
+                                  int(link.type), np.array(link.transform),
+                                  np.array(link.info, np.float64)))
+    return {int(k): np.array(v) for k, v in poses.items()}, out

@@ -11,6 +11,9 @@ Unlike tpuslam, nothing is written to disk: `make_sequence` returns the
 frames in memory, with the timestamps and ground truth the KITTI-layout
 files would have given (the same text round trip).  The procedural
 texture only: the photo-texture option is not ported.
+
+`pnp_scene` makes the known-pose refinement inputs that the card-only
+tests and chip_smoke.py hold the LM-refine kernel to.
 """
 
 from __future__ import annotations
@@ -205,8 +208,9 @@ def _robot_gt(pose_cam: np.ndarray) -> np.ndarray:
 def make_sequence(n_frames: int = 20, width: int = 640, height: int = 480,
                   f: float = 500.0, baseline: float = 0.54,
                   speed: float = 0.5, yaw_rate: float = 0.004,
-                  seed: int = 0, device="cpu"):
-    """Render a synthetic stereo sequence on `device`.
+                  seed: int = 0, device="cuda"):
+    """Render a synthetic stereo sequence on `device` (the card unless the
+    caller asks for the CPU).
 
     Returns (left (N, H, W) uint8, right (N, H, W) uint8, stamps list of
     float, gt_poses (N, 4, 4) float32 robot-frame numpy array).  Frames,
@@ -225,6 +229,35 @@ def make_sequence(n_frames: int = 20, width: int = 640, height: int = 480,
     stamps = [float(f"{i * 0.1:.6e}") for i in range(n_frames)]
     gt = np.stack([_robot_gt(p) for p in poses])
     return left, right, stamps, gt
+
+
+def pnp_scene(rng: np.random.Generator, n: int, K: np.ndarray, rvec0=None,
+              device="cuda"):
+    """Refinement inputs with a known pose: `n` points in front of the
+    camera `K` at rvec (0.02, -0.03, 0.01), tvec (0.3, -0.1, 0.8), pixels
+    with 0.3 px noise, 30 % of the rows at weight 0 (as the VO's refine
+    rounds weight the inliers); the start is `rvec0` (default off by
+    0.05 rad per axis) and tvec off by 0.3 m.
+
+    Returns ([obj, img, weight, valid, K, rvec0, tvec0] as f32/bool tensors
+    on `device`, true rvec, true tvec)."""
+    rv = np.array([0.02, -0.03, 0.01])
+    tv = np.array([0.3, -0.1, 0.8])
+    th = np.linalg.norm(rv)
+    k = rv / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    R = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+    pts = np.stack([rng.uniform(-10, 10, n), rng.uniform(-5, 5, n),
+                    rng.uniform(5, 40, n)], 1)
+    pc = pts @ R.T + tv
+    K = np.asarray(K, np.float32)
+    img = pc[:, :2] / pc[:, 2:] * K[[0, 1], [0, 1]] + K[[0, 1], [2, 2]]
+    img = img + rng.normal(0, 0.3, (n, 2))
+    w = (rng.uniform(size=n) < 0.7).astype(np.float32)
+    r0 = rv + 0.05 if rvec0 is None else rvec0
+    args = (pts.astype(np.float32), img.astype(np.float32), w, w > 0, K,
+            np.asarray(r0, np.float32), (tv + 0.3).astype(np.float32))
+    return [torch.as_tensor(a, device=device) for a in args], rv, tv
 
 
 def sequence_camera(width: int, height: int, f: float,

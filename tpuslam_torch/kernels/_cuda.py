@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # per-file extra flags: the float kernels must keep the plain version's
 # f32 operation order, so FMA contraction is off for them
 EXTRA_FLAGS = {"gftt": ["-fmad=false"], "orb": ["-fmad=false"]}
-KERNELS = ("stereo_bm", "gftt", "orb", "median")
+KERNELS = ("stereo_bm", "gftt", "orb", "median", "lr_check", "lm_refine")
 
 # C signature of each library's launcher: pointers and the stream are
 # void*, sizes and parameters int; every launcher returns cudaGetLastError()
@@ -42,6 +42,8 @@ SIGNATURES = {
     "gftt": ("tpuslam_gftt", [_P] * 3 + [_I] * 3 + [_P]),
     "orb": ("tpuslam_orb", [_P] * 6 + [_I] * 4 + [_P]),
     "median": ("tpuslam_masked_median2", [_P] * 5 + [_I] * 2 + [_P]),
+    "lr_check": ("tpuslam_lr_check", [_P] * 3 + [_I] * 6 + [_P]),
+    "lm_refine": ("tpuslam_lm_refine", [_P] * 9 + [_I] * 2 + [_P]),
 }
 
 LAUNCHES = {k: 0 for k in KERNELS}

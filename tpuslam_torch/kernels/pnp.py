@@ -1,14 +1,18 @@
-"""Batched EPnP + RANSAC in PyTorch.
+"""Batched EPnP + RANSAC and the LM refine in PyTorch.
 
-Counterpart of tpuslam/kernels/pnp.py:57-790.  All 300 RANSAC hypotheses
+Counterpart of tpuslam/kernels/pnp.py.  All 300 RANSAC hypotheses
 are solved at once; every small decomposition (Cholesky, 3x3 eigh, Horn)
 is unrolled into arithmetic on the matrix components, as in the JAX
 version, so the f32 operation order is the same.  A "scalar" here is a
 tensor that carries the batch shape (for example (n_hyp,)); EPnP's three
 beta-approximation cases ride one more trailing axis of size 3.
 
-The LM refine (`refine_lm*`, tpuslam/kernels/pnp.py:798-1087) is not
-ported yet (ROADMAP B5); the fused VO raises for refine_iterations > 0.
+The LM refine (`refine_lm`, `refine_lm_with_errors`) is the plain
+version of kernel K6 (csrc/lm_refine.cu), which replaces the Pallas
+kernel `_refine_lm_errors_kernel`; `refine_lm_with_errors_auto` sends a
+CUDA tensor to K6 and a CPU tensor to the plain version.  The two agree
+to f32 reduction order (rvec 1e-5, tvec 1e-4, the same inliers at 2 px:
+the JAX suite's own Pallas-vs-XLA tolerance, tests/test_pnp.py:127-133).
 
 Hypothesis draws: JAX draws them with jax.random.uniform(PRNGKey(frame)),
 a stream torch cannot reproduce, so `ransac_epnp` takes the (n_hyp, m)
@@ -19,6 +23,8 @@ torch.Generator.
 from __future__ import annotations
 
 import math
+
+from . import _cuda
 
 import numpy as np
 import torch
@@ -638,3 +644,209 @@ def ransac_epnp(obj: torch.Tensor, img: torch.Tensor, valid: torch.Tensor,
     counts = torch.where(oks, inl.sum(dim=1), -1)
     best = _first_argmax(counts)
     return rodrigues_inv(Rs[best]), ts[best], inl[best], counts[best]
+
+
+# ---------------------------------------------------------------------------
+# LM refine (cv::solvePnP ITERATIVE with a guess): plain version of K6
+# ---------------------------------------------------------------------------
+
+BIG_ERR = 1e12      # reprojection error of an invalid row (pnp.py BIG)
+LM_ITERS = 20
+
+
+def _normal_eqs(obj, img_n, w, p):
+    """Analytic H = J^T J, g = J^T r and cost of the weighted normalized
+    reprojection residuals at p = (rvec, tvec); dR/drvec by forward-mode
+    autodiff of `rodrigues` (tpuslam's jacfwd)."""
+    rv, t = p[:3], p[3:]
+    R = rodrigues(rv)
+    pc = obj @ R.T + t
+    z = torch.where(pc[:, 2].abs() < 1e-9, 1e-9, pc[:, 2])
+    invz = 1.0 / z
+    x_z = pc[:, 0] * invz
+    y_z = pc[:, 1] * invz
+    r2 = (torch.stack([x_z, y_z], dim=1) - img_n) * w[:, None]
+
+    J_R = torch.func.jacfwd(rodrigues)(rv)             # (3, 3, 3)
+    dPdr = torch.einsum("abc,nb->nac", J_R, obj)       # (N, 3, 3)
+    Ju_r = (dPdr[:, 0] - x_z[:, None] * dPdr[:, 2]) * invz[:, None]
+    Jv_r = (dPdr[:, 1] - y_z[:, None] * dPdr[:, 2]) * invz[:, None]
+    zero = torch.zeros_like(invz)
+    Ju_t = torch.stack([invz, zero, -x_z * invz], dim=1)
+    Jv_t = torch.stack([zero, invz, -y_z * invz], dim=1)
+    Ju = torch.cat([Ju_r, Ju_t], dim=1) * w[:, None]    # (N, 6)
+    Jv = torch.cat([Jv_r, Jv_t], dim=1) * w[:, None]
+    H = Ju.T @ Ju + Jv.T @ Jv
+    g = Ju.T @ r2[:, 0] + Jv.T @ r2[:, 1]
+    return H, g, torch.sum(r2 * r2)
+
+
+def refine_lm(obj, img, weight, K, rvec0, tvec0, iters: int = LM_ITERS):
+    """Weighted LM minimizing sum w_i ||proj(X_i) - x_i||^2 over (rvec, t),
+    residuals in normalized coordinates (tpuslam refine_lm, step for
+    step): lambda 1e-3, x0.5 on an accepted step and x10 on a rejected
+    one, (H, g, cost) of the accepted iterate carried, the damped 6x6
+    solved by the unrolled scalar Cholesky.  No host synchronisation."""
+    K = K.float()
+    obj = obj.float()
+    img_n = normalize_points(img.float(), K)
+    w = weight.float()
+    p = torch.cat([rvec0.float(), tvec0.float()])
+    H, g, c = _normal_eqs(obj, img_n, w, p)
+    lam = torch.tensor(1e-3, dtype=torch.float32, device=obj.device)
+    for _ in range(iters):
+        Hd = [[H[i, j] + (lam * (H[i, i] + 1e-12) if i == j else 0.0)
+               for j in range(6)] for i in range(6)]
+        step = _chol_solve_s(_chol_s(Hd, 6), [-g[i] for i in range(6)], 6)
+        new_p = p + torch.stack(step)
+        Hn, gn, c_new = _normal_eqs(obj, img_n, w, new_p)
+        better = c_new < c
+        p = torch.where(better, new_p, p)
+        H = torch.where(better, Hn, H)
+        g = torch.where(better, gn, g)
+        lam = torch.where(better, lam * 0.5, lam * 10.0)
+        c = torch.where(better, c_new, c)
+    return p[:3], p[3:]
+
+
+def reproj_errors(obj, img, valid, K, rvec, tvec):
+    """Per-point reprojection L2 pixel errors, BIG_ERR where invalid."""
+    K = K.float()
+    p = project_norm(obj.float(), rodrigues(rvec), tvec.float())
+    img_n = normalize_points(img.float(), K)
+    e = torch.sqrt(pixel_err2(p, img_n, K[0, 0], K[1, 1]))
+    return torch.where(valid, e, BIG_ERR)
+
+
+def refine_lm_with_errors(obj, img, weight, valid, K, rvec, tvec):
+    """Plain version of kernel K6: refine_lm + reproj_errors at the
+    refined pose -> (rvec (3,), tvec (3,), err (N,))."""
+    _cuda.PLAIN_CALLS["lm_refine"] += 1
+    rvec2, tvec2 = refine_lm(obj, img, weight, K, rvec, tvec)
+    return rvec2, tvec2, reproj_errors(obj, img, valid, K, rvec2, tvec2)
+
+
+def refine_lm_errors_cuda(obj, img, weight, valid, K, rvec, tvec,
+                          iters: int = LM_ITERS):
+    """Kernel K6 (csrc/lm_refine.cu): same contract as
+    refine_lm_with_errors, one block running the whole loop.  rvec, tvec
+    and K are read from device memory and the result stays there: no host
+    synchronisation."""
+    _cuda.expect(obj, "obj", torch.float32, 2)
+    _cuda.expect(img, "img", torch.float32, 2)
+    _cuda.expect(weight, "weight", torch.float32, 1)
+    _cuda.expect(valid, "valid", torch.bool, 1)
+    _cuda.expect(K, "K", torch.float32, 2)
+    _cuda.expect(rvec, "rvec", torch.float32, 1)
+    _cuda.expect(tvec, "tvec", torch.float32, 1)
+    N = obj.shape[0]
+    if obj.shape != (N, 3) or img.shape != (N, 2) or \
+            weight.shape != (N,) or valid.shape != (N,) or \
+            K.shape != (3, 3) or rvec.shape != (3,) or tvec.shape != (3,):
+        raise ValueError("expected obj (N,3), img (N,2), weight and valid "
+                         "(N,), K (3,3), rvec and tvec (3,)")
+    if N < 1:
+        raise ValueError("no correspondences")
+    p = torch.empty((6,), dtype=torch.float32, device=obj.device)
+    err = torch.empty((N,), dtype=torch.float32, device=obj.device)
+    with torch.cuda.device(obj.device):
+        _cuda.launch("lm_refine", obj, img, weight, valid, K, rvec, tvec, p,
+                     err, N, iters)
+    return p[:3], p[3:], err
+
+
+def refine_lm_with_errors_auto(obj, img, weight, valid, K, rvec, tvec):
+    """A CUDA tensor goes to kernel K6, a CPU tensor to the plain
+    version."""
+    if obj.is_cuda:
+        return refine_lm_errors_cuda(
+            *(t.float().contiguous() for t in (obj, img, weight)),
+            valid.contiguous(), K.float().contiguous(),
+            rvec.float().contiguous(), tvec.float().contiguous())
+    return refine_lm_with_errors(obj, img, weight, valid, K, rvec, tvec)
+
+
+def solve_pnp_ransac(obj: np.ndarray, img: np.ndarray, K: np.ndarray,
+                     rvec0: np.ndarray, tvec0: np.ndarray,
+                     min_inliers: int = 20, refine_iterations: int = 1,
+                     reprojection_error: float = 2.0,
+                     refine_sigma: float = 3.0,
+                     iterations_count: int = 300,
+                     seed: int = 0,
+                     capacity: int = 1536,
+                     device="cuda", draws=None):
+    """Host driver: the reference's solvePnPRansac + refinement loop
+    (MotionEstimation.cpp:279-374), tpuslam's solve_pnp_ransac.
+
+    The RANSAC uniforms come from a torch.Generator on `device` seeded
+    with `seed`, or from `draws` ((iterations_count, 6), as tests inject
+    tpuslam's).  Returns (rvec, tvec, inlier_indices ndarray); on failure
+    the guess is passed back with empty inliers.  Inputs are unpadded
+    (N, 3) / (N, 2) float arrays."""
+    n = len(obj)
+    if n < 6:
+        return np.asarray(rvec0), np.asarray(tvec0), np.zeros(0, np.int64)
+
+    cap = capacity
+    obj_p = np.zeros((cap, 3), np.float32)
+    img_p = np.zeros((cap, 2), np.float32)
+    val_p = np.zeros((cap,), bool)
+    obj_p[:n] = obj
+    img_p[:n] = img
+    val_p[:n] = True
+
+    dev = torch.device(device)
+    obj_d = torch.as_tensor(obj_p, device=dev)
+    img_d = torch.as_tensor(img_p, device=dev)
+    val_d = torch.as_tensor(val_p, device=dev)
+    K_d = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+    if draws is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        u = torch.rand((iterations_count, 6), generator=gen, device=dev)
+    else:
+        u = torch.as_tensor(np.asarray(draws, np.float32), device=dev)
+
+    rvec, tvec, inl_mask, n_inl = ransac_epnp(
+        obj_d, img_d, val_d, K_d, u, reprojection_error,
+        n_hyp=iterations_count)
+    inl_mask = inl_mask.cpu().numpy()
+    n_inl = int(n_inl)
+    if n_inl <= 0:
+        return np.asarray(rvec0), np.asarray(tvec0), np.zeros(0, np.int64)
+
+    inliers = np.nonzero(inl_mask)[0]
+
+    # ---- refinement loop (MotionEstimation.cpp:310-374) ---------------
+    if n_inl >= min_inliers and refine_iterations > 0:
+        thr = reprojection_error
+        prev = inliers
+        new_inliers = inliers
+        new_rvec, new_tvec = rvec, tvec
+        refine_count = 0
+        while refine_count < refine_iterations:
+            w = np.zeros((cap,), np.float32)
+            w[prev] = 1.0
+            new_rvec, new_tvec, err_d = refine_lm_with_errors_auto(
+                obj_d, img_d, torch.as_tensor(w, device=dev), val_d, K_d,
+                new_rvec, new_tvec)
+            err = err_d.cpu().numpy()
+            new_inliers = np.nonzero(err[:n] <= thr)[0]
+            kept = err[new_inliers]
+            # reference calcVariance over the kept errors
+            var = float(np.var(kept, ddof=1)) if len(kept) > 1 else 0.0
+            thr = min(reprojection_error,
+                      refine_sigma * float(np.sqrt(var)))
+            if (len(new_inliers) < min_inliers or
+                    np.array_equal(new_inliers, prev)):
+                break
+            # the reference's std::swap: prev takes the new set,
+            # new_inliers the old one (matters for the post-loop swap)
+            new_inliers, prev = prev, new_inliers
+            refine_count += 1
+        # post-loop swap(new_inliers, inliers) (MotionEstimation.cpp:370):
+        # break -> last computed set; budget exhaustion -> the previous set
+        inliers = new_inliers
+        rvec, tvec = new_rvec, new_tvec
+
+    return rvec.cpu().numpy(), tvec.cpu().numpy(), inliers

@@ -1,5 +1,6 @@
-"""Dense SAD block-matching disparity (StereoBM): plain PyTorch version and
-the dispatcher to the hand-written CUDA kernel (csrc/stereo_bm.cu).
+"""Dense SAD block-matching disparity (StereoBM) and its left-right check:
+plain PyTorch versions and the dispatchers to the hand-written CUDA
+kernels (csrc/stereo_bm.cu, csrc/lr_check.cu).
 
 Counterpart of tpuslam/kernels/stereo_bm.py (`prefilter_xsobel`,
 `_box_sum`, `stereo_bm`) and of the Pallas strip kernel
@@ -8,10 +9,12 @@ bit-identical to `stereo_bm`.  Semantics are OpenCV's
 findStereoCorrespondenceBM: X-Sobel prefilter capped at `prefilter_cap`,
 (2r+1)^2 SAD over `num_disparities` shifts, winner with ties to the larger
 disparity, uniqueness and texture gates, x16 subpixel with C-truncating
-division, and (min_disparity - 1) * 16 at invalid pixels.
+division, and (min_disparity - 1) * 16 at invalid pixels.  The
+left-right check (`_lr_consistency`, cv::validateDisparity) is the twin
+of tpuslam/kernels/stereo_bm.py:_lr_consistency and of the Pallas kernel
+tpuslam/kernels/stereo_bm_pallas.py:_lr_kernel.
 
-Not ported yet: the left-right check (`disp12_max_diff >= 0` raises
-NotImplementedError, ROADMAP B2) and the speckle filter (A4).
+Not ported yet: the speckle filter (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -155,15 +158,112 @@ def stereo_bm_cuda(left: torch.Tensor, right: torch.Tensor,
     return disp, minsad
 
 
+def _lr_consistency(disp: torch.Tensor, minsad: torch.Tensor,
+                    cfg: StereoBMConfig) -> torch.Tensor:
+    """Left-right consistency (cv::validateDisparity) over (B, H, W)
+    int16 disparity and min-SAD -> (B, H, W) int16; the reference's
+    static-shift form, step for step.
+
+    Projection pass: every participating left pixel x (valid, x >=
+    mindisp + ndisp) projects its winner to x2 = x - round(d/16); each
+    right pixel keeps the projector of least (minsad * 4096 + dv).  Check
+    pass: x is invalidated only when both its floor projection x - (d>>4)
+    and its ceil projection x - ((d+15)>>4) hold valid winners differing
+    from d by more than disp12MaxDiff * 16."""
+    disp = disp.to(torch.int32)
+    minsad = minsad.to(torch.int32)
+    B, h, w = disp.shape
+    dev = disp.device
+    mindisp = cfg.min_disparity
+    ndisp = cfg.num_disparities
+    filtered = (mindisp - 1) * FILTERED_SCALE
+    INF = 2 ** 31 - 1
+
+    xs = torch.arange(w, device=dev, dtype=torch.int32)
+    participate = (disp != filtered) & (xs >= max(mindisp + ndisp, 0))
+    dint = (disp + FILTERED_SCALE // 2) >> 4            # round(d/16)
+    dv = disp - mindisp * FILTERED_SCALE
+    enc = torch.where(participate, minsad * 4096 + dv, INF)
+
+    P = ndisp + abs(mindisp) + 2
+
+    def pad(x, lo, hi):
+        return torch.cat([torch.full((B, h, P), lo, dtype=torch.int32,
+                                     device=dev), x,
+                          torch.full((B, h, P), hi, dtype=torch.int32,
+                                     device=dev)], dim=2)
+
+    enc_pad = pad(enc, INF, INF)
+    dint_pad = pad(dint, 1 << 20, INF)
+    best2 = torch.full((B, h, w), INF, dtype=torch.int32, device=dev)
+    for k in range(mindisp, mindisp + ndisp + 1):
+        # right pixel x2 sees left pixel x = x2 + k
+        sl = enc_pad[..., P + k:P + k + w]
+        sd = dint_pad[..., P + k:P + k + w]
+        best2 = torch.minimum(best2, torch.where(sd == k, sl, INF))
+    disp2 = torch.where(best2 != INF,
+                        torch.remainder(best2, 4096) +
+                        mindisp * FILTERED_SCALE, filtered)
+
+    md16 = cfg.disp12_max_diff * FILTERED_SCALE
+    disp2_pad = pad(disp2, filtered, filtered)
+
+    def fails(s):
+        """d2 = disp2[x - s(x)] through static shifts, 0 where s(x) lies
+        outside [mindisp, mindisp + ndisp]."""
+        xp = xs - s
+        inb = (xp >= 0) & (xp < w)
+        d2 = torch.zeros((B, h, w), dtype=torch.int32, device=dev)
+        for k in range(mindisp, mindisp + ndisp + 1):
+            d2 = torch.where(s == k, disp2_pad[..., P - k:P - k + w], d2)
+        return inb & (d2 >= 0) & ((d2 - disp).abs() > md16)
+
+    bad = participate & fails(disp >> 4) & \
+        fails((disp + FILTERED_SCALE - 1) >> 4)
+    return torch.where(bad, filtered, disp).to(torch.int16)
+
+
+def lr_check_plain(disp: torch.Tensor, minsad: torch.Tensor,
+                   cfg: StereoBMConfig = StereoBMConfig()) -> torch.Tensor:
+    """Plain version of kernel K5: `_lr_consistency`, counted."""
+    _cuda.PLAIN_CALLS["lr_check"] += 1
+    return _lr_consistency(disp, minsad, cfg)
+
+
+def lr_check_cuda(disp: torch.Tensor, minsad: torch.Tensor,
+                  cfg: StereoBMConfig = StereoBMConfig()) -> torch.Tensor:
+    """Kernel K5 (csrc/lr_check.cu): same contract as lr_check_plain, on
+    K1's (B, H, W) int16 disparity and min-SAD."""
+    _cuda.expect(disp, "disp", torch.int16, 3)
+    _cuda.expect(minsad, "minsad", torch.int16, 3)
+    if minsad.shape != disp.shape or minsad.device != disp.device:
+        raise ValueError("disp/minsad must share shape and device")
+    B, H, W = disp.shape
+    out = torch.empty_like(disp)
+    with torch.cuda.device(disp.device):
+        _cuda.launch("lr_check", disp, minsad, out, B, H, W,
+                     cfg.min_disparity, cfg.num_disparities,
+                     cfg.disp12_max_diff * FILTERED_SCALE)
+    return out
+
+
+def lr_check(disp, minsad, cfg: StereoBMConfig = StereoBMConfig()):
+    """A CUDA tensor goes to kernel K5, a CPU tensor to the plain
+    version."""
+    fn = lr_check_cuda if disp.is_cuda else lr_check_plain
+    return fn(disp, minsad, cfg)
+
+
 def stereo_bm(left: torch.Tensor, right: torch.Tensor,
               cfg: StereoBMConfig = StereoBMConfig()) -> torch.Tensor:
-    """(B, H, W) uint8 pairs -> (B, H, W) int16 x16 disparity, without
-    speckle filtering (not ported yet: ROADMAP A4).
+    """(B, H, W) uint8 pairs -> (B, H, W) int16 x16 disparity, with the
+    left-right check when `disp12_max_diff >= 0` and without speckle
+    filtering (not ported yet: ROADMAP A4).
 
-    A CUDA tensor goes to kernel K1, a CPU tensor to the plain version."""
-    if cfg.disp12_max_diff >= 0:
-        raise NotImplementedError(
-            "StereoBM left-right check (disp12_max_diff >= 0) is not "
-            "ported yet: ROADMAP B2")
+    A CUDA tensor goes to kernels K1 and K5, a CPU tensor to the plain
+    versions."""
     fn = stereo_bm_cuda if left.is_cuda else stereo_bm_plain
-    return fn(left, right, cfg)[0]
+    disp, minsad = fn(left, right, cfg)
+    if cfg.disp12_max_diff >= 0:
+        disp = lr_check(disp, minsad, cfg)
+    return disp

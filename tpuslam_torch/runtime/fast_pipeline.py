@@ -1,15 +1,17 @@
 """Chunked driver for the fused VO (vo/fused.py), in PyTorch.
 
 Counterpart of tpuslam/runtime/fast_pipeline.py: frames go to the device
-in chunks; while the host unpacks chunk i's results, chunk i+1 is already
-queued on the device.  Per chunk there is one upload of the images (none
-for chunks staged by `stage_chunks`) and one download of the small
-per-frame results, copied into pinned host memory without blocking and
-waited for with an event when the chunk is collected.
+in chunks; while the host unpacks chunk i's results and feeds them to the
+Mapper, chunk i+1 is already queued on the device.  Per chunk there is one
+upload of the images (none for chunks staged by `stage_chunks`) and one
+download of the small per-frame results, copied into pinned host memory
+without blocking and waited for with an event when the chunk is
+collected.  With a Mapper, the chunk's dictionary update
+(mapping/chunk_dict.py) is queued on the device right after the VO chunk,
+and the Mapper's torch work runs on the pipeline's device.
 
-Not ported here: the Mapper, the device dictionary and loop closure
-(ROADMAP A2; `mapper` must be None), the ingest loop (A5), and the XLA
-compile cache and AOT artifacts, which exist only for XLA.
+Not ported here: the ingest loop (ROADMAP A5), and the XLA compile cache
+and AOT artifacts, which exist only for XLA.
 """
 
 from __future__ import annotations
@@ -53,23 +55,17 @@ def _as_u8(img) -> torch.Tensor:
     return torch.from_numpy(np.array(img, np.uint8))
 
 
-def _no_mapper(mapper) -> None:
-    if mapper is not None:
-        raise NotImplementedError(
-            "the Mapper (dictionary, loop closure) is not ported yet: "
-            "ROADMAP A2; pass mapper=None")
-
-
 class FastSlamPipeline:
     """Fused-VO chunk driver on one torch device.
 
+    Runs on the card unless the caller asks for the CPU (device="cpu").
     `draws_fn(frame_index) -> (n_hyp, 6) array` supplies each frame's
     RANSAC uniforms (tests pass tpuslam's own draws); by default they come
     from a torch.Generator on the device seeded with `seed`."""
 
     def __init__(self, camera: StereoCameraModel, cfg: SlamConfig,
-                 chunk: int = 40, capacity: int = 1536, device="cpu",
-                 seed: int = 0, draws_fn=None):
+                 chunk: int = 40, capacity: int = 1536, device="cuda",
+                 seed: int = 0, draws_fn=None, device_dict: bool = True):
         mu = cfg.mapper.map_update
         if chunk % mu:
             chunk += mu - chunk % mu     # align chunks to node cadence
@@ -82,6 +78,7 @@ class FastSlamPipeline:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.seed = seed
         self.draws_fn = draws_fn
+        self.device_dict = device_dict
         shapes = FusedShapes(chunk=chunk, capacity=capacity)
         self._init_carry, self._step, self._offsets = make_fused_chunk_fn(
             camera, cfg, shapes, device=self.device)
@@ -93,6 +90,25 @@ class FastSlamPipeline:
         self._prev_stamp = None
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.seed)
+        self._dict_driver = None
+
+    def _attach_mapper(self, mapper) -> None:
+        """Run the mapper's torch work on this device, and start the
+        per-run device dictionary (mapping/chunk_dict.py): one update per
+        chunk, queued right after the VO chunk on its device features."""
+        self._dict_driver = None
+        if mapper is None:
+            return
+        mapper.device = self.device
+        if not self.device_dict:
+            return
+        from ..mapping.chunk_dict import ChunkDictDriver
+        driver = ChunkDictDriver(self.cfg.mapper.dict_nndr,
+                                 self.cfg.mapper.max_features_per_node,
+                                 device=self.device)
+        if mapper.vwd._count:
+            driver.seed(mapper.vwd)
+        self._dict_driver = driver
 
     # -- device side -------------------------------------------------------
     def stage_chunks(self, items: list[dict]) -> list[tuple]:
@@ -162,6 +178,13 @@ class FastSlamPipeline:
         self.carry, outs, feats = self._step(
             self.carry, lb, rb, torch.as_tensor(dts, device=self.device),
             torch.as_tensor(active, device=self.device), self._draws(n))
+        dict_handle = None
+        if self._dict_driver is not None:
+            # queue the chunk's dictionary update on the VO chunk's device
+            # outputs: VO_i -> dict_i -> VO_{i+1}
+            dict_handle = self._dict_driver.dispatch(
+                feats["desc"], feats["kpts"][..., 2], feats["n_kpts"],
+                [o < n for o in self._offsets])
         # results go to pinned host memory without blocking; the event
         # marks when they have landed.  disp_dec is fetched here too, once:
         # nothing keeps it on the device
@@ -176,7 +199,8 @@ class FastSlamPipeline:
         self._frames += n
         self._prev_stamp = float(st[n - 1])
         return dict(outs=host["outs"], feats=host["feats"], event=event,
-                    n=n, start=start, stamps=st[:n], dts=dts[:n])
+                    n=n, start=start, stamps=st[:n], dts=dts[:n],
+                    dict_handle=dict_handle)
 
     # -- host side -----------------------------------------------------------
     def collect(self, pending, gt_poses=None) -> list[tuple[OdomInfo,
@@ -222,8 +246,9 @@ class FastSlamPipeline:
     # -- end-to-end loops ----------------------------------------------------
     def run(self, items: list[dict], mapper=None) -> list[OdomInfo]:
         """Process `items` (dicts with left/right/stamp and optional
-        ground_truth), dispatching chunk i+1 before unpacking chunk i."""
-        _no_mapper(mapper)
+        ground_truth), dispatching chunk i+1 before unpacking chunk i;
+        each frame then goes to `mapper` if one is given."""
+        self._attach_mapper(mapper)
 
         def chunks():
             for lo in range(0, len(items), self.chunk):
@@ -233,16 +258,17 @@ class FastSlamPipeline:
                        np.array([b["stamp"] for b in batch]), len(batch),
                        [b.get("ground_truth") for b in batch])
 
-        return self._double_buffered(chunks())
+        return self._double_buffered(chunks(), mapper)
 
     def run_staged(self, staged: list[tuple], items: list[dict],
                    mapper=None, mapper_async: bool = False
                    ) -> list[OdomInfo]:
         """run() over chunks staged on the device (see stage_chunks): the
         loop holds no host-to-device image transfer.  With `mapper_async`
-        the results are unpacked on a consumer thread while the producer
-        keeps dispatching chunks."""
-        _no_mapper(mapper)
+        the results are unpacked, and fed to `mapper`, on a consumer
+        thread while the producer keeps dispatching chunks.  All mapper
+        work (loop closure included) completes before this returns."""
+        self._attach_mapper(mapper)
 
         def gts_of(i, n):
             return [b.get("ground_truth")
@@ -250,21 +276,23 @@ class FastSlamPipeline:
 
         if not mapper_async:
             return self._double_buffered(
-                (lb, rb, stamps, n, gts_of(i, n))
-                for i, (lb, rb, stamps, n) in enumerate(staged))
+                ((lb, rb, stamps, n, gts_of(i, n))
+                 for i, (lb, rb, stamps, n) in enumerate(staged)), mapper)
 
         q: queue.Queue = queue.Queue(maxsize=4)
         results: dict[int, list[OdomInfo]] = {}
         err: list[BaseException] = []
 
         def consumer():
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
             while True:
                 job = q.get()
                 if job is None:
                     return
                 idx, pending, gts = job
                 try:
-                    results[idx] = self._consume(pending, gts)
+                    results[idx] = self._consume(pending, gts, mapper)
                 except BaseException as e:   # surfaced on the producer
                     err.append(e)
                     return
@@ -278,9 +306,11 @@ class FastSlamPipeline:
         t.join()
         if err:
             raise err[0]
+        if mapper is not None:
+            mapper.join_loop_closure()
         return [info for i in sorted(results) for info in results[i]]
 
-    def _double_buffered(self, chunks) -> list[OdomInfo]:
+    def _double_buffered(self, chunks, mapper) -> list[OdomInfo]:
         """Dispatch each (lefts, rights, stamps, n, gts) chunk before
         unpacking the one before it."""
         infos: list[OdomInfo] = []
@@ -288,11 +318,26 @@ class FastSlamPipeline:
         for lefts, rights, stamps, n, gts in chunks:
             nxt = (self.dispatch(lefts, rights, stamps, n), gts)
             if pending is not None:
-                infos.extend(self._consume(*pending))
+                infos.extend(self._consume(*pending, mapper))
             pending = nxt
         if pending is not None:
-            infos.extend(self._consume(*pending))
+            infos.extend(self._consume(*pending, mapper))
+        if mapper is not None:
+            mapper.join_loop_closure()
         return infos
 
-    def _consume(self, pending, gts) -> list[OdomInfo]:
-        return [info for info, _ in self.collect(pending, gts)]
+    def _consume(self, pending, gts, mapper) -> list[OdomInfo]:
+        if mapper is not None and pending["dict_handle"] is not None:
+            decisions = self._dict_driver.fetch(pending["dict_handle"])
+            start, n = pending["start"], pending["n"]
+            for j, off in enumerate(self._offsets):
+                if off < n:
+                    mapper.word_precomputed[start + off] = (
+                        decisions["keep"][j], decisions["unique"][j],
+                        decisions["i1"][j], decisions["count_after"][j])
+        out = []
+        for info, frame in self.collect(pending, gts):
+            if mapper is not None:
+                mapper.process(frame, info)
+            out.append(info)
+        return out

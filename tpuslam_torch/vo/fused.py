@@ -6,17 +6,17 @@ through the front end as one batch (StereoBM disparity, GFTT response +
 filter, ORB descriptors, the 3D lift), then a Python loop runs the
 per-frame VO step over the chunk: the Hamming matrix, guided and global
 top-2 NNDR matching with dedup and the wrong-guess retry, 300-hypothesis
-EPnP RANSAC, the covariance medians and the keyframe and velocity state.
+EPnP RANSAC, the LM refine rounds with the reference's swap semantics, the
+covariance medians and the keyframe and velocity state.
 The loop keeps `lax.scan`'s active-mask semantics: an inactive (padding)
 frame runs but leaves the carry unchanged.
 
 The VO step never reads a tensor on the host (no .item(), no bool() of a
 tensor), so the frames of a chunk queue on the device without a sync.
 
-Not ported yet, and refused with NotImplementedError: the LM refine
-(refine_iterations > 0, ROADMAP B5), the left-right check
-(disp12_max_diff >= 0, B2), fused speckle (A4) and depth methods other
-than "bm" (A6).
+Not ported yet, and refused with NotImplementedError: fused speckle
+(ROADMAP A4) and depth methods other than "bm" (A6).  The factories build
+on the card unless the caller asks for the CPU (device="cpu").
 
 RANSAC draws: tpuslam seeds each frame's hypotheses with
 jax.random.PRNGKey(frame index); here each frame takes its (n_hyp, 6)
@@ -47,14 +47,6 @@ def check_supported(cfg: SlamConfig) -> None:
         raise NotImplementedError(
             f"depth_method={cfg.depth_method!r}: only 'bm' is ported "
             "(ROADMAP A6)")
-    if cfg.bm.disp12_max_diff >= 0:
-        raise NotImplementedError(
-            "StereoBM left-right check (disp12_max_diff >= 0) is not "
-            "ported yet: ROADMAP B2")
-    if cfg.pnp.refine_iterations > 0:
-        raise NotImplementedError(
-            "PnP LM refine (refine_iterations > 0) is not ported yet: "
-            "ROADMAP B5")
     if cfg.fused_speckle:
         raise NotImplementedError(
             "fused_speckle=True is not ported yet: ROADMAP A4")
@@ -227,7 +219,7 @@ def detect_keypoints(lefts: torch.Tensor, cfg: SlamConfig,
 
 def make_frontend_fn(camera: StereoCameraModel, cfg: SlamConfig,
                      shapes: FusedShapes = FusedShapes(),
-                     device="cpu"):
+                     device="cuda"):
     """Front-end factory: (lefts, rights) (B, H, W) uint8 -> feature dict
     of batched tensors (kpts, valid, n_kpts, desc, bits, pts3d,
     disp_dec)."""
@@ -287,7 +279,7 @@ def make_frontend_fn(camera: StereoCameraModel, cfg: SlamConfig,
 def make_fused_chunk_fn(camera: StereoCameraModel, cfg: SlamConfig,
                         shapes: FusedShapes = FusedShapes(),
                         full_node_offsets: tuple[int, ...] | None = None,
-                        device="cpu"):
+                        device="cuda"):
     """Build (init_carry, chunk_step, full_node_offsets) for the fused VO.
 
     chunk_step(carry, lefts (B,H,W) u8, rights, dts (B,) f32,
@@ -313,6 +305,7 @@ def make_fused_chunk_fn(camera: StereoCameraModel, cfg: SlamConfig,
     radius = torch.tensor(cfg.matching.guess_win_size, **f32)
     min_inl = cfg.pnp.min_inliers
     reproj_err = torch.tensor(cfg.pnp.reprojection_error, **f32)
+    refine_sigma = torch.tensor(cfg.pnp.refine_sigma, **f32)
     K_l = torch.tensor(camera.K_l, **f32)
     eye4 = torch.eye(4, **f32)
     eye6 = torch.eye(6, **f32)
@@ -395,9 +388,34 @@ def make_fused_chunk_fn(camera: StereoCameraModel, cfg: SlamConfig,
         # PnP RANSAC (MotionEstimation.cpp:279-374)
         obj = torch.nan_to_num(carry["ref_pts3d"], nan=0.0)
         img = feats["kpts"][i1, :2]
-        rv, tv, inl, n_inl = P.ransac_epnp(obj, img, m, K_l, draws,
-                                           reproj_err, n_hyp=n_hyp)
+        rvec, tvec, inl_mask, n_inl = P.ransac_epnp(
+            obj, img, m, K_l, draws, reproj_err, n_hyp=n_hyp)
         ransac_ok = n_inl > 0
+
+        # refinement round(s) with the reference's swap semantics
+        inl, rv, tv = inl_mask, rvec, tvec
+        thr = reproj_err
+        do_refine = n_inl >= min_inl
+        prev = inl_mask
+        for _ in range(max(cfg.pnp.refine_iterations, 0)):
+            rv2, tv2, err = P.refine_lm_with_errors_auto(
+                obj, img, prev.float(), m, K_l, rv, tv)
+            new_inl = (err <= thr) & m
+            n_new = new_inl.sum()
+            kept = torch.where(new_inl, err, 0.0)
+            mean = kept.sum() / torch.clamp(n_new, min=1)
+            var = torch.where(new_inl, (err - mean) ** 2, 0.0).sum() / \
+                torch.clamp(n_new - 1, min=1)
+            thr = torch.minimum(reproj_err, refine_sigma * torch.sqrt(var))
+            same = (new_inl == prev).all()
+            brk = (n_new < min_inl) | same
+            # break -> latest set; budget exhaustion -> previous set
+            # (MotionEstimation.cpp:370 std::swap tail)
+            inl_final = torch.where(brk, new_inl, prev)
+            rv = torch.where(do_refine, rv2, rv)
+            tv = torch.where(do_refine, tv2, tv)
+            inl = torch.where(do_refine, inl_final, inl)
+            prev = torch.where(brk, prev, new_inl)
 
         n_inliers = inl.sum()
         ok = ((n_match >= min_inl) & ransac_ok & (n_inliers >= min_inl)) \
