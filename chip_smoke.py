@@ -14,26 +14,30 @@ tpuslam.  Phases, each of which raises on failure:
    both (median of 20 runs, CUDA events): K1 StereoBM, K2 GFTT
    response+dilation, K3 ORB, K4 covariance medians and K5 LR check
    exactly;
-4. main path: what bench.py runs -- FastSlamPipeline.run_staged over the
+4. K1 phases: the phase harness (tpuslam_torch/tools/probe_bm_parts.py)
+   on the same chunk: K1 cut after each of its seven phases, each cut
+   equal to its plain twin (the full one also to K1), each timed;
+5. main path: what bench.py runs -- FastSlamPipeline.run_staged over the
    120 frames in SlamConfig() with a Mapper (async loop closure, device
    dictionary), once warm and once timed, every counter reset just before
-   the timed run; assert each of the six kernels ran and no plain version
-   did, one Mapper node per frame and a non-empty dictionary, bench.py:240's
-   gates (0 lost, median inliers >= 300, t_err <= 1 %) and ATE within the
-   bound of PERF.md;
-5. K6: the LM refine against its plain version to rvec 1e-5, tvec 1e-4
+   the timed run; assert each of the six kernels ran, the phase harness
+   and the plain versions did not, one Mapper node per frame and a
+   non-empty dictionary, bench.py:240's gates (0 lost, median inliers
+   >= 300, t_err <= 1 %) and ATE within the bound of PERF.md;
+6. K6: the LM refine against its plain version to rvec 1e-5, tvec 1e-4
    and the same inliers at 2 px, timed, on the arguments the warm run's VO
    step gave it at frame 1, and on a scene with a known pose;
-6. post-loop: the robust pose graph and global BA on the timed run's
+7. post-loop: the robust pose graph and global BA on the timed run's
    Mapper; assert finite poses and a non-empty graph;
-7. slice path: the first slice's configuration (no LR check, no refine,
+8. slice path: the first slice's configuration (no LR check, no refine,
    no Mapper), timed, with its own counters (K1-K4) and ATE bound.
 
 With --spread N the main path is run again with RANSAC seeds 1..N and the
 quality of each is printed (the data behind PERF.md's ATE bound).
 
 Prints fps, inliers, ATE and KITTI errors, one JSON line of per-kernel
-numbers, the nvidia-smi line, and last
+numbers (the harness's row with its per-phase numbers under "phases"), the
+nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -251,6 +255,25 @@ def kernel_phase(lefts, rights, cfg):
     return rows
 
 
+def k1_phases_phase(rows, lefts, rights, cfg):
+    """The K1 phase harness on the first chunk: every phase of K1 equal to
+    its plain twin (raises otherwise), timed; its row counts the harness's
+    launches (the main path never launches it)."""
+    from tpuslam_torch.tools import probe_bm_parts as PB
+    res = PB.run(lefts, rights, cfg.bm)
+    for line in PB.table(res).splitlines():
+        log(f"# K1 phases: {line}")
+    rows["stereo_bm_phase"] = dict(
+        name="stereo_bm_phase", route="cuda",
+        source="tpuslam_torch/csrc/stereo_bm.cu",
+        replaces="tools/probe_bm_parts.py:148", library_ms=None,
+        phases={n: {k: p[k] for k in ("ms", "net_ms", "bound_ms", "bound_by",
+                                       "blocks_per_sm") if k in p}
+                for n, p in res["phases"].items()},
+        **{k: res[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by")})
+
+
 def lm_phase(rows, frame1_args, camera, cfg):
     """K6, the LM refine, against its plain version to LM_TOL: on the
     arguments the main path's VO step gave it at frame 1 (timed), and on a
@@ -372,6 +395,8 @@ def main_path_phase(camera, cfg, staged, items, gt):
                              f"{missing}")
     if any(v != 0 for v in plain.values()):
         raise AssertionError(f"a plain version ran: {plain}")
+    if any(launches[k] != 0 for k in _cuda.TOOLS):
+        raise AssertionError(f"a tool ran on the main path: {launches}")
     log(f"# mapper: {len(mapper.nodes)} nodes, {mapper.vwd._count} words, "
         f"{len(mapper.loop_closures)} loop closures")
     if len(mapper.nodes) != N_FRAMES or not mapper.vwd._count > 0:
@@ -468,7 +493,7 @@ def main():
 
     t0 = time.perf_counter()
     took = _cuda.build_all()
-    for name in _cuda.KERNELS:
+    for name in _cuda.KERNELS + _cuda.TOOLS:
         _cuda.launcher(name)
     log(f"# build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
@@ -482,8 +507,9 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     camera = sequence_camera(WIDTH, HEIGHT, FOCAL, BASELINE)
 
-    rows = kernel_phase(lefts[:CHUNK].contiguous(),
-                        rights[:CHUNK].contiguous(), cfg)
+    chunk = (lefts[:CHUNK].contiguous(), rights[:CHUNK].contiguous())
+    rows = kernel_phase(*chunk, cfg)
+    k1_phases_phase(rows, *chunk, cfg)
     items = [dict(left=lefts[i], right=rights[i], stamp=stamps[i],
                   ground_truth=gt[i]) for i in range(N_FRAMES)]
     staged = FastSlamPipeline(camera, cfg, chunk=CHUNK,
@@ -499,14 +525,15 @@ def main():
         spread_phase(camera, cfg, staged, items, gt, args.spread)
 
     for name, row in rows.items():
-        row["launches"] = launches[name]
+        if name in _cuda.KERNELS:
+            row["launches"] = launches[name]
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms",
                                                     "bound_ms")):
             raise AssertionError(f"{name}: a time is not finite: {row}")
     kernels = [{k: rows[n][k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for n in _cuda.KERNELS]
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "phases")
+        if k in rows[n]} for n in _cuda.KERNELS + _cuda.TOOLS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -242,17 +242,23 @@ def test_dispatch_takes_plain_version_on_cpu(name):
 
 
 def test_kernel_table_names_every_kernel():
+    """Every launcher has a signature, counters and a source; the phase
+    harness is a tool in K1's file, not a kernel of the main path."""
     from tpuslam_torch.kernels import _cuda
     assert list(_cuda.KERNELS) == KERNELS
-    assert set(_cuda.SIGNATURES) == set(KERNELS)
-    for name in KERNELS:
+    assert list(_cuda.TOOLS) == ["stereo_bm_phase"]
+    names = KERNELS + list(_cuda.TOOLS)
+    assert set(_cuda.SIGNATURES) == set(names)
+    assert set(_cuda.LAUNCHES) == set(_cuda.PLAIN_CALLS) == set(names)
+    assert _cuda.source("stereo_bm_phase") == "stereo_bm"
+    for name in names:
         assert os.path.exists(os.path.join(ROOT, "tpuslam_torch", "csrc",
-                                           f"{name}.cu"))
+                                           f"{_cuda.source(name)}.cu"))
 
 
 def _entry_points():
     from tpuslam_torch import convert
-    from tpuslam_torch.io.synthetic import make_sequence
+    from tpuslam_torch.io.synthetic import BoxWorld, make_sequence
     from tpuslam_torch.kernels.pnp import solve_pnp_ransac
     from tpuslam_torch.mapping import ba_window
     from tpuslam_torch.mapping.chunk_dict import ChunkDictDriver
@@ -263,6 +269,7 @@ def _entry_points():
     return {
         "FastSlamPipeline": FastSlamPipeline.__init__,
         "make_sequence": make_sequence,
+        "BoxWorld.render": BoxWorld.render,
         "make_frontend_fn": fused.make_frontend_fn,
         "make_fused_chunk_fn": fused.make_fused_chunk_fn,
         "carry_from_reference": convert.carry_from_reference,
@@ -278,7 +285,7 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["FastSlamPipeline", "make_sequence",
-                                  "make_frontend_fn", "make_fused_chunk_fn",
+                                  "BoxWorld.render", "make_frontend_fn", "make_fused_chunk_fn",
                                   "carry_from_reference",
                                   "dictionary_from_reference", "Mapper",
                                   "VWDictionary", "ChunkDictDriver",

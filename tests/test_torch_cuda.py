@@ -6,8 +6,8 @@ runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-K1-K5 must equal their plain versions exactly (bit for bit for the f32
-GFTT response); K6, the LM refine, agrees with its plain version to f32
+K1-K5 and each phase of the K1 phase harness must equal their plain
+versions exactly (bit for bit for the f32 GFTT response); K6, the LM refine, agrees with its plain version to f32
 reduction order: rvec 1e-5, tvec 1e-4 and the same inliers at 2 px (the
 JAX suite's Pallas-vs-XLA tolerance, tests/test_pnp.py:127-133).  The
 image inputs are the repository's real 640x480 stereo fixture, cropped to
@@ -53,6 +53,32 @@ def test_stereo_bm_kernel(pair):
     assert torch.equal(kd, pd)
     assert torch.equal(ks, ps)
     assert (pd >= 0).float().mean() > 0.2
+
+
+@pytest.mark.parametrize("phase", ["prefilter", "vbox", "boxes", "winner",
+                                   "sad", "uniq", "full"])
+def test_stereo_bm_phase_kernel(pair, phase):
+    """The K1 phase harness: each cut of K1 equals its plain twin bit for
+    bit, the full cut equals K1, each cut runs at K1's occupancy, and a
+    harness launch counts only as itself."""
+    from tpuslam_torch.config import StereoBMConfig
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.kernels import stereo_bm as T
+    cfg = StereoBMConfig()
+    _cuda.reset_counters()
+    got = T.stereo_bm_phase_cuda(*pair, cfg, phase)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["stereo_bm_phase"] == 1
+    assert not any(_cuda.LAUNCHES[k] for k in _cuda.KERNELS)
+    want = T.stereo_bm_phase_plain(*pair, cfg, phase)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if phase == "full":
+        k1 = T.stereo_bm_cuda(*pair, cfg)
+        assert torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1])
+    if phase != "prefilter":      # every cut at K1's blocks per SM
+        assert T.stereo_bm_phase_occupancy(phase)[2] == \
+            T.stereo_bm_phase_occupancy("full")[2] > 0
 
 
 def test_gftt_kernel(pair):
@@ -205,5 +231,6 @@ def test_default_config_chunk_runs_all_kernels():
     torch.cuda.synchronize()
     assert not outs["lost"][1:].any()
     assert dict(_cuda.LAUNCHES) == dict(stereo_bm=1, gftt=1, orb=1,
-                                        median=B, lr_check=1, lm_refine=B)
+                                        median=B, lr_check=1, lm_refine=B,
+                                        stereo_bm_phase=0)
     assert not any(_cuda.PLAIN_CALLS.values())

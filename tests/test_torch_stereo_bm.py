@@ -167,3 +167,164 @@ def test_default_config_bit_equal(stereo_pair, rows):
     got = T.stereo_bm(torch.as_tensor(left)[None],
                       torch.as_tensor(right)[None], SlamConfig().bm)
     np.testing.assert_array_equal(got[0].numpy(), ref)
+
+
+# --- the K1 phase harness's plain twin -------------------------------------
+
+PHASE_DTYPES = dict(prefilter=np.uint8, vbox=np.int32, boxes=np.int32,
+                    winner=np.int32, sad=np.int32, uniq=np.int32,
+                    full=np.int16)
+# sha256 of stereo_bm_plain's (disp, minsad) bytes on _phase_pair(rng),
+# taken from the code before StereoBM was split into phases
+PLAIN_DIGEST = \
+    "272f8e29120cfbf11c06a010abf9e371b003469f398a92f58e7151036ffaf098"
+
+
+def _phase_pair(rng, n=2, h=48, w=200):
+    """n frames whose right image is the left shifted by a row-varying
+    disparity of 5..35 (tests/test_bm_pallas.py:17-28's construction)."""
+    lefts, rights = [], []
+    for _ in range(n):
+        left = rng.integers(0, 256, (h, w), dtype=np.uint8)
+        left = ((left.astype(np.int32) + np.roll(left, 1, 1) +
+                 np.roll(left, 1, 0)) // 3).astype(np.uint8)
+        right = np.empty_like(left)
+        for y in range(h):
+            right[y] = np.roll(left[y], -(20 + int(15 * np.sin(y / 7.0))))
+        lefts.append(left)
+        rights.append(right)
+    return np.stack(lefts), np.stack(rights)
+
+
+def _vertical_sum(x, r):
+    """Direct (2r+1)-row sum with zero padding, in numpy."""
+    h = x.shape[-2]
+    out = np.zeros_like(x)
+    for t in range(-r, r + 1):
+        lo, hi = max(0, -t), min(h, h - t)
+        out[..., lo:hi, :] += x[..., lo + t:hi + t, :]
+    return out
+
+
+def _ref_phase(left, right, phase):
+    """One frame's two outputs of `phase`, built from tpuslam's XLA twin
+    (prefilter_xsobel, _box_sum, and stereo_bm's winner, neighbour SADs,
+    uniqueness and output at :490-528) in StereoBMConfig() without the
+    left-right check and speckle; vbox, which has no counterpart there,
+    from a direct numpy sum."""
+    import jax.numpy as jnp
+    cfg = JCfg(**SLICE)
+    ndisp, r, ftzero = cfg.num_disparities, cfg.block_size // 2, \
+        cfg.prefilter_cap
+    lp = np.asarray(J.prefilter_xsobel(left, ftzero))
+    rp = np.asarray(J.prefilter_xsobel(right, ftzero))
+    if phase == "prefilter":
+        return lp, rp
+    lp, rp = lp.astype(np.int32), rp.astype(np.int32)
+    h, w = lp.shape
+    rshift = np.zeros((ndisp, h, w), np.int32)
+    for d in range(ndisp):
+        rshift[d, :, d:] = rp[:, :w - d]
+    absdiff = np.abs(lp[None] - rshift)
+    tex_plane = np.abs(lp - ftzero)
+    if phase == "vbox":
+        v = _vertical_sum(absdiff, r)
+        return v[ndisp - 1], _vertical_sum(tex_plane, r) + v.sum(axis=0)
+    cost_rev = jnp.asarray(np.asarray(J._box_sum(absdiff, r))[::-1])
+    tex = np.asarray(J._box_sum(tex_plane, r))
+    if phase == "boxes":
+        return np.asarray(cost_rev[0]), tex + np.asarray(cost_rev).sum(0)
+    mind = jnp.argmin(cost_rev, axis=0)
+    minsad = jnp.min(cost_rev, axis=0)
+    if phase == "winner":
+        return np.asarray(mind), np.asarray(minsad)
+    if phase == "sad":
+        def at(j):
+            return jnp.take_along_axis(
+                cost_rev, jnp.clip(j, 0, ndisp - 1)[None], axis=0)[0]
+        return (np.asarray(jnp.where(mind > 0, at(mind - 1), 0)),
+                np.asarray(jnp.where(mind < ndisp - 1, at(mind + 1), 0)))
+    if phase == "uniq":
+        thresh = minsad + (minsad * cfg.uniqueness_ratio) // 100
+        far = jnp.abs(jnp.arange(ndisp).reshape(ndisp, 1, 1) -
+                      mind[None]) > 1
+        violate = jnp.any((cost_rev <= thresh[None]) & far, axis=0)
+        return np.asarray(~violate), np.asarray(minsad)
+    return (np.asarray(J.stereo_bm(left, right, cfg, with_speckle=False)),
+            np.asarray(minsad))
+
+
+@pytest.mark.parametrize("phase", list(PHASE_DTYPES))
+def test_phase_plain_matches_reference(rng, phase):
+    """The plain twin of each phase of the K1 harness, bit for bit against
+    the same quantity built from tpuslam's XLA twin of the Pallas strip
+    kernel (tests/test_bm_pallas.py pins the two bit-identical).  The TPU
+    probe's own truncated kernels (tools/probe_bm_parts.py) cannot be
+    imported: that script reads a cached KITTI sequence and turns on the
+    compile cache when imported."""
+    from tpuslam_torch.kernels import _cuda
+    lefts, rights = _phase_pair(rng)
+    _cuda.reset_counters()
+    got = T.stereo_bm_phase_plain(torch.as_tensor(lefts),
+                                  torch.as_tensor(rights),
+                                  StereoBMConfig(**SLICE), phase)
+    assert _cuda.PLAIN_CALLS["stereo_bm_phase"] == 1
+    assert sum(_cuda.LAUNCHES.values()) == 0
+    for i in range(len(lefts)):
+        ref = _ref_phase(lefts[i], rights[i], phase)
+        for g, want in zip(got, ref):
+            g = g[i].numpy()
+            assert g.dtype == PHASE_DTYPES[phase]
+            np.testing.assert_array_equal(g.astype(np.int64),
+                                          want.astype(np.int64))
+
+
+def test_phase_full_is_stereo_bm_plain(rng):
+    """The full phase is StereoBM itself, and splitting StereoBM into
+    phases left stereo_bm_plain's outputs as they were (a digest taken
+    before the split)."""
+    import hashlib
+    lefts, rights = (torch.as_tensor(a) for a in _phase_pair(rng))
+    cfg = StereoBMConfig()
+    disp, minsad = T.stereo_bm_plain(lefts, rights, cfg)
+    full = T.stereo_bm_phase_plain(lefts, rights, cfg, "full")
+    assert torch.equal(full[0], disp) and torch.equal(full[1], minsad)
+    digest = hashlib.sha256(disp.numpy().tobytes() +
+                            minsad.numpy().tobytes()).hexdigest()
+    assert digest == PLAIN_DIGEST
+    assert (disp >= 0).any()
+
+
+def test_phase_wrappers_refuse(rng):
+    """An unknown phase is refused by both versions, CPU tensors by the
+    kernel's wrapper, the prefilter by the occupancy query, before any
+    build or launch."""
+    from tpuslam_torch.kernels import _cuda
+    lefts, rights = (torch.as_tensor(a) for a in _phase_pair(rng, n=1))
+    _cuda.reset_counters()
+    for fn in (T.stereo_bm_phase_cuda, T.stereo_bm_phase_plain):
+        with pytest.raises(ValueError, match="unknown StereoBM phase"):
+            fn(lefts, rights, StereoBMConfig(), "pass1")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        T.stereo_bm_phase_cuda(lefts, rights, StereoBMConfig(), "full")
+    with pytest.raises(ValueError, match="no cut"):
+        T.stereo_bm_phase_occupancy("prefilter")
+    assert sum(_cuda.LAUNCHES.values()) == 0
+    assert sum(_cuda.PLAIN_CALLS.values()) == 0
+
+
+def test_probe_needs_the_card(monkeypatch):
+    """The harness exits with an error where there is no CUDA device.  Its
+    bound model gives the full phase the bytes of K1's own function (the
+    pair in, disparity and min-SAD out) and every phase's operations; a
+    phase adds bytes only where its outputs grow (the prefiltered pair,
+    then two int32 planes)."""
+    from tpuslam_torch.tools import probe_bm_parts as PB
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        PB.main()
+    added, (full_bytes, full_ops) = PB.phase_work(1)
+    assert list(added) == list(T.PHASES)
+    assert full_bytes == 6
+    assert full_ops == sum(o for _, o in added.values())
+    assert [b for b, _ in added.values()] == [4, 6, 0, 0, 0, 0, 0]

@@ -30,9 +30,22 @@
 // so CUDA's `/` is C's division and no TPU float workaround is needed.
 // Simple and right first; a faster design (running box sums, int8 MMA
 // for the horizontal box) is later work.
+//
+// The phase harness (tpuslam_stereo_bm_phase) replaces the TPU timing
+// probe tools/probe_bm_parts.py:148 (the strip kernel cut after each of
+// its passes).  `bm_kernel<STOP>` is K1's own kernel cut after phase STOP:
+// it writes that phase's two outputs (tpuslam_torch/kernels/stereo_bm.py
+// PHASES, int32) and returns.  Each output depends on every plane the
+// phase computes (the texture sum through live() where the phase does
+// not output it), so nvcc cannot drop the phase's work, and a cut that
+// needs fewer registers or less shared memory is launched with enough
+// dynamic shared memory to run at K1's occupancy (blocks per SM).
+// tpuslam_stereo_bm launches bm_kernel<FULL>, the main path's K1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -44,6 +57,11 @@ constexpr int RMAX = 15;             // block_size <= 31
 constexpr int ROWS = TY + 2 * RMAX;
 constexpr int LCOLS = TX + 2 * RMAX;
 constexpr int RCOLS = LCOLS + NDISP - 1;
+
+// the harness's cut points, in order (kernels/stereo_bm.py PHASES)
+enum Phase { PREFILTER, VBOX, BOXES, WINNER, SAD, UNIQ, FULL, NPHASES };
+template <int STOP>
+using Out = typename std::conditional<STOP == FULL, int16_t, int>::type;
 
 __global__ void prefilter_kernel(const uint8_t* __restrict__ left,
                                  const uint8_t* __restrict__ right,
@@ -72,9 +90,17 @@ __global__ void prefilter_kernel(const uint8_t* __restrict__ left,
   dst[i] = (uint8_t)v;
 }
 
+// v, as the texture sum tex is never negative: the cuts between BOXES and
+// FULL, which do not output tex, pass their output through live() to
+// keep tex's box pass live
+__device__ __forceinline__ int live(int tex, int v) {
+  return tex < 0 ? tex : v;
+}
+
+template <int STOP>
 __global__ void __launch_bounds__(NT)
 bm_kernel(const uint8_t* __restrict__ lp, const uint8_t* __restrict__ rp,
-          int16_t* __restrict__ disp, int16_t* __restrict__ minsad_out,
+          Out<STOP>* __restrict__ disp, Out<STOP>* __restrict__ minsad_out,
           int H, int W, int r, int mindisp, int ftzero, int uniq,
           int tex_thr) {
   __shared__ int16_t Ls[ROWS][LCOLS];     // -1 marks outside the image
@@ -107,6 +133,7 @@ bm_kernel(const uint8_t* __restrict__ lp, const uint8_t* __restrict__ rp,
 
   // k = -1: the texture image |L - ftzero|; k = d: |L(x) - R(x - d)|
   int tex = 0;
+  int vsum = 0, v0 = 0;      // VBOX: all planes' vertical sums, plane j = 0
   for (int k = -1; k < NDISP; ++k) {
     for (int i = tid; i < TY * lcols; i += NT) {
       int oy = i / lcols, xx = i % lcols;
@@ -121,15 +148,33 @@ bm_kernel(const uint8_t* __restrict__ lp, const uint8_t* __restrict__ rp,
       Vs[oy][xx] = s;
     }
     __syncthreads();
-    int c = 0;
-    for (int t = 0; t < win; ++t) c += Vs[ty][tx + t];
-    if (k < 0) tex = c;
-    else costs[k][tid] = (uint16_t)c;
+    if constexpr (STOP == VBOX) {
+      int v = Vs[ty][tx + r];
+      vsum += v;
+      if (k == NDISP - 1) v0 = v;
+    } else {
+      int c = 0;
+      for (int t = 0; t < win; ++t) c += Vs[ty][tx + t];
+      if (k < 0) tex = c;
+      else costs[k][tid] = (uint16_t)c;
+    }
     __syncthreads();
   }
 
   const int x = x0 + tx, y = y0 + ty;
   if (x >= W || y >= H) return;
+  if constexpr (STOP == VBOX) {
+    disp[frame + (long)y * W + x] = v0;
+    minsad_out[frame + (long)y * W + x] = vsum;
+    return;
+  }
+  if constexpr (STOP == BOXES) {
+    int s = tex;
+    for (int j = 0; j < NDISP; ++j) s += costs[NDISP - 1 - j][tid];
+    disp[frame + (long)y * W + x] = costs[NDISP - 1][tid];
+    minsad_out[frame + (long)y * W + x] = s;
+    return;
+  }
 
   // winner in internal order j = NDISP-1-d: first strict minimum
   int best = 1 << 30, bj = 0;
@@ -137,12 +182,29 @@ bm_kernel(const uint8_t* __restrict__ lp, const uint8_t* __restrict__ rp,
     int c = costs[NDISP - 1 - j][tid];
     if (c < best) { best = c; bj = j; }
   }
+  if constexpr (STOP == WINNER) {
+    disp[frame + (long)y * W + x] = live(tex, bj);
+    minsad_out[frame + (long)y * W + x] = best;
+    return;
+  }
+  if constexpr (STOP == SAD) {   // the neighbours before the edge swap
+    disp[frame + (long)y * W + x] =
+        live(tex, bj > 0 ? costs[NDISP - bj][tid] : 0);
+    minsad_out[frame + (long)y * W + x] =
+        bj < NDISP - 1 ? costs[NDISP - 2 - bj][tid] : 0;
+    return;
+  }
   bool uniq_ok = true;
   if (uniq > 0) {
     int thresh = best + (best * uniq) / 100;
     for (int j = 0; j < NDISP; ++j)
       if (abs(j - bj) > 1 && (int)costs[NDISP - 1 - j][tid] <= thresh)
         uniq_ok = false;
+  }
+  if constexpr (STOP == UNIQ) {
+    disp[frame + (long)y * W + x] = live(tex, uniq_ok);
+    minsad_out[frame + (long)y * W + x] = best;
+    return;
   }
   int lo = (bj == 0) ? 1 : bj - 1;
   int hi = (bj == NDISP - 1) ? NDISP - 2 : bj + 1;
@@ -160,6 +222,75 @@ bm_kernel(const uint8_t* __restrict__ lp, const uint8_t* __restrict__ rp,
   minsad_out[o] = (int16_t)best;
 }
 
+// Launch 2 cut after STOP runs at bm_kernel<FULL>'s occupancy: a cut
+// that needs fewer registers or less static shared memory than FULL would
+// fit more blocks on an SM, so it takes dynamic shared memory until it
+// fits as many as FULL does, and is refused if it cannot.
+template <int STOP>
+cudaError_t fit_occupancy(size_t* pad, int* blocks) {
+  cudaFuncAttributes full, mine;
+  int want = 0;
+  cudaError_t e = cudaFuncGetAttributes(&full, bm_kernel<FULL>);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&mine, bm_kernel<STOP>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&want,
+                                                      bm_kernel<FULL>, NT, 0);
+  if (e != cudaSuccess) return e;
+  *pad = full.sharedSizeBytes > mine.sharedSizeBytes
+             ? full.sharedSizeBytes - mine.sharedSizeBytes : 0;
+  for (;;) {   // ends: past the card's limit the attribute is refused
+    e = cudaFuncSetAttribute(bm_kernel<STOP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)*pad);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, bm_kernel<STOP>, NT, *pad);
+    if (e != cudaSuccess) return e;
+    if (*blocks <= want) break;
+    *pad += 1024;
+  }
+  return *blocks == want ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+template <int STOP>
+cudaError_t launch_bm(dim3 grid, cudaStream_t s, const uint8_t* lp,
+                      const uint8_t* rp, void* out0, void* out1, int H,
+                      int W, int r, int mindisp, int ftzero, int uniq,
+                      int tex_thr) {
+  size_t pad;
+  int blocks;
+  cudaError_t e = fit_occupancy<STOP>(&pad, &blocks);
+  if (e != cudaSuccess) return e;
+  bm_kernel<STOP><<<grid, dim3(TX, TY), pad, s>>>(
+      lp, rp, (Out<STOP>*)out0, (Out<STOP>*)out1, H, W, r, mindisp, ftzero,
+      uniq, tex_thr);
+  return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, STOP>) for the runtime phase (> PREFILTER)
+template <typename F>
+cudaError_t on_phase(int phase, F f) {
+  switch (phase) {
+    case VBOX: return f(std::integral_constant<int, VBOX>());
+    case BOXES: return f(std::integral_constant<int, BOXES>());
+    case WINNER: return f(std::integral_constant<int, WINNER>());
+    case SAD: return f(std::integral_constant<int, SAD>());
+    case UNIQ: return f(std::integral_constant<int, UNIQ>());
+    case FULL: return f(std::integral_constant<int, FULL>());
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+void launch_prefilter(const void* left, const void* right, void* lp,
+                      void* rp, int B, int H, int W, int cap,
+                      cudaStream_t s) {
+  long total = (long)B * H * W;
+  dim3 pgrid((unsigned)((total + 255) / 256), 2);
+  prefilter_kernel<<<pgrid, 256, 0, s>>>(
+      (const uint8_t*)left, (const uint8_t*)right, (uint8_t*)lp,
+      (uint8_t*)rp, H, W, cap, total);
+}
+
 }  // namespace
 
 extern "C" int tpuslam_stereo_bm(const void* left, const void* right,
@@ -169,15 +300,52 @@ extern "C" int tpuslam_stereo_bm(const void* left, const void* right,
                                  int uniq, int tex_thr, void* stream) {
   if (r < 1 || r > RMAX || B < 1 || H < 3 || W < 3) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  long total = (long)B * H * W;
-  dim3 pgrid((unsigned)((total + 255) / 256), 2);
-  prefilter_kernel<<<pgrid, 256, 0, s>>>(
-      (const uint8_t*)left, (const uint8_t*)right, (uint8_t*)lp_scratch,
-      (uint8_t*)rp_scratch, H, W, ftzero, total);
+  launch_prefilter(left, right, lp_scratch, rp_scratch, B, H, W, ftzero, s);
   dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  bm_kernel<<<grid, dim3(TX, TY), 0, s>>>(
+  bm_kernel<FULL><<<grid, dim3(TX, TY), 0, s>>>(
       (const uint8_t*)lp_scratch, (const uint8_t*)rp_scratch,
       (int16_t*)disp, (int16_t*)minsad, H, W, r, mindisp, ftzero, uniq,
       tex_thr);
   return (int)cudaGetLastError();
+}
+
+// The phase harness: launch 1 into lp/rp and, past PREFILTER, launch 2
+// cut after `phase` into out0/out1 (int32; int16 for FULL).
+extern "C" int tpuslam_stereo_bm_phase(const void* left, const void* right,
+                                       void* lp, void* rp, void* out0,
+                                       void* out1, int B, int H, int W,
+                                       int r, int mindisp, int ftzero,
+                                       int uniq, int tex_thr, int phase,
+                                       void* stream) {
+  if (r < 1 || r > RMAX || B < 1 || H < 3 || W < 3 || phase < 0 ||
+      phase >= NPHASES)
+    return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  launch_prefilter(left, right, lp, rp, B, H, W, ftzero, s);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || phase == PREFILTER) return (int)e;
+  dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
+  return (int)on_phase(phase, [&](auto stop) {
+    return launch_bm<decltype(stop)::value>(
+        grid, s, (const uint8_t*)lp, (const uint8_t*)rp, out0, out1, H, W, r,
+        mindisp, ftzero, uniq, tex_thr);
+  });
+}
+
+// The harness's launch 2 for `phase` (> PREFILTER) on the current card:
+// registers per thread, shared memory per block (static and padding) and
+// blocks per SM, into out[0..2].
+extern "C" int tpuslam_stereo_bm_phase_occupancy(int phase, int* out) {
+  return (int)on_phase(phase, [&](auto stop) {
+    constexpr int STOP = decltype(stop)::value;
+    cudaFuncAttributes a;
+    size_t pad;
+    cudaError_t e = fit_occupancy<STOP>(&pad, &out[2]);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, bm_kernel<STOP>);
+    if (e == cudaSuccess) {
+      out[0] = a.numRegs;
+      out[1] = (int)(a.sharedSizeBytes + pad);
+    }
+    return e;
+  });
 }

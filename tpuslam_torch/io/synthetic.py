@@ -172,7 +172,9 @@ class BoxWorld:
         self.seed = seed
 
     def render(self, cam_to_world, f, cx, cy, h, w, ss: int = 2,
-               device="cpu") -> torch.Tensor:
+               device="cuda") -> torch.Tensor:
+        """One (h, w) uint8 view from `cam_to_world`, rendered on `device`
+        (the card unless the caller asks for the CPU)."""
         return render_box(cam_to_world, self.box, f, cx, cy, int(h), int(w),
                           int(ss), int(self.seed) & 0x7FFFFFFF, device)
 

@@ -1,12 +1,16 @@
 """Build, load and count the hand-written CUDA kernels (csrc/*.cu).
 
-Each `.cu` file exports a plain `extern "C"` launcher that returns
+Each `.cu` file exports plain `extern "C"` launchers that return
 `cudaGetLastError()` as an int.  It is compiled by nvcc into its own
 shared library at first use and loaded with ctypes; no PyTorch headers are
 compiled, so a build takes seconds.  Libraries go to
 `build/tpuslam_torch/<hash>/` beside the package, keyed by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one is
-reused.
+source and flags, so a changed source rebuilds and an unchanged one is
+reused.  A launcher is named like its kernel; SOURCES maps the launchers
+that live in another kernel's file to that file.
+
+KERNELS are the kernels of the main path; TOOLS are launchers that no path
+runs (the K1 phase harness of tpuslam_torch/tools/probe_bm_parts.py).
 
 Counters: every kernel wrapper adds one to LAUNCHES[name] where it launches
 its kernel; every plain PyTorch twin adds one to PLAIN_CALLS[name].  A run
@@ -33,8 +37,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # f32 operation order, so FMA contraction is off for them
 EXTRA_FLAGS = {"gftt": ["-fmad=false"], "orb": ["-fmad=false"]}
 KERNELS = ("stereo_bm", "gftt", "orb", "median", "lr_check", "lm_refine")
+TOOLS = ("stereo_bm_phase",)
+# launcher name -> csrc/<source>.cu, where the two differ
+SOURCES = {"stereo_bm_phase": "stereo_bm"}
 
-# C signature of each library's launcher: pointers and the stream are
+# C signature of each launcher: pointers and the stream are
 # void*, sizes and parameters int; every launcher returns cudaGetLastError()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
@@ -44,12 +51,15 @@ SIGNATURES = {
     "median": ("tpuslam_masked_median2", [_P] * 5 + [_I] * 2 + [_P]),
     "lr_check": ("tpuslam_lr_check", [_P] * 3 + [_I] * 6 + [_P]),
     "lm_refine": ("tpuslam_lm_refine", [_P] * 9 + [_I] * 2 + [_P]),
+    "stereo_bm_phase": ("tpuslam_stereo_bm_phase", [_P] * 6 + [_I] * 9 +
+                        [_P]),
 }
 
-LAUNCHES = {k: 0 for k in KERNELS}
-PLAIN_CALLS = {k: 0 for k in KERNELS}
+LAUNCHES = {k: 0 for k in KERNELS + TOOLS}
+PLAIN_CALLS = {k: 0 for k in KERNELS + TOOLS}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -65,18 +75,25 @@ def _nvcc() -> str:
     return cand if os.path.exists(cand) else "nvcc"
 
 
+def source(name: str) -> str:
+    """The csrc/<source>.cu file that holds launcher `name`."""
+    return SOURCES.get(name, name)
+
+
 def _lib_path(name: str) -> Path:
+    """The library of csrc/<name>.cu, keyed by its source and flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
     h = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_ROOT / h / f"lib{name}.so"
 
 
-def build_all(names=KERNELS) -> dict[str, float]:
-    """Compile every missing library in parallel; returns the seconds each
-    build took (0.0 where the library was already built)."""
+def build_all(names=KERNELS + TOOLS) -> dict[str, float]:
+    """Compile the missing libraries of the launchers `names` in parallel;
+    returns the seconds each source's build took (0.0 where its library
+    was already built)."""
     procs, took = {}, {}
-    for name in names:
+    for name in dict.fromkeys(source(n) for n in names):
         out = _lib_path(name)
         if out.exists():
             took[name] = 0.0
@@ -98,17 +115,25 @@ def build_all(names=KERNELS) -> dict[str, float]:
     return took
 
 
-def launcher(name: str):
-    """The typed C launcher of csrc/<name>.cu, built and loaded on first
+def function(src: str, sym: str, argtypes):
+    """The C function `sym` of csrc/<src>.cu's library, typed with
+    `argtypes` and returning int; the library is built and loaded on first
     use."""
     with _lock:
-        if name not in _libs:
-            build_all((name,))
-            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(_libs[name], SIGNATURES[name][0])
-            fn.argtypes = SIGNATURES[name][1]
-            fn.restype = ctypes.c_int
-        return getattr(_libs[name], SIGNATURES[name][0])
+        if src not in _libs:
+            build_all((src,))
+            _libs[src] = ctypes.CDLL(str(_lib_path(src)))
+        fn = getattr(_libs[src], sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+
+def launcher(name: str):
+    """The typed C launcher `name`."""
+    if name not in _fns:
+        _fns[name] = function(source(name), *SIGNATURES[name])
+    return _fns[name]
 
 
 def launch(name: str, *args) -> None:

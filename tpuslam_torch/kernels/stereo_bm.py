@@ -19,6 +19,8 @@ Not ported yet: the speckle filter (ROADMAP A4).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..config import StereoBMConfig
@@ -47,93 +49,181 @@ def prefilter_xsobel(img: torch.Tensor, cap: int = 31) -> torch.Tensor:
     return v.to(torch.uint8)
 
 
-def _box_sum(x: torch.Tensor, radius: int) -> torch.Tensor:
-    """(2r+1)^2 window sum of (..., H, W) integers with zero padding,
-    exact, via integral images."""
-    h, w = x.shape[-2:]
-    r = radius
+def _vbox_sum(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """(2r+1)-row window sum of (..., H, W) integers with zero padding,
+    exact, via an integral image over rows (int64)."""
+    h = x.shape[-2]
     dev = x.device
     c = torch.nn.functional.pad(torch.cumsum(x, dim=-2), (0, 0, 1, 0))
-    top = torch.clamp(torch.arange(h, device=dev) - r, 0, h)
-    bot = torch.clamp(torch.arange(h, device=dev) + r + 1, 0, h)
-    rows = c.index_select(-2, bot) - c.index_select(-2, top)
-    c2 = torch.nn.functional.pad(torch.cumsum(rows, dim=-1), (1, 0))
+    top = torch.clamp(torch.arange(h, device=dev) - radius, 0, h)
+    bot = torch.clamp(torch.arange(h, device=dev) + radius + 1, 0, h)
+    return c.index_select(-2, bot) - c.index_select(-2, top)
+
+
+def _box_sum(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """(2r+1)^2 window sum of (..., H, W) integers with zero padding,
+    exact, via integral images: the row sums, then the same over columns."""
+    w = x.shape[-1]
+    r = radius
+    dev = x.device
+    c2 = torch.nn.functional.pad(torch.cumsum(_vbox_sum(x, r), dim=-1),
+                                 (1, 0))
     lft = torch.clamp(torch.arange(w, device=dev) - r, 0, w)
     rgt = torch.clamp(torch.arange(w, device=dev) + r + 1, 0, w)
     return (c2.index_select(-1, rgt) - c2.index_select(-1, lft)).to(x.dtype)
 
 
-def _stereo_bm_frame(left, right, cfg: StereoBMConfig):
-    """One (H, W) uint8 pair -> (disp int16, minsad int16)."""
+# Phases of StereoBM, in order; each cut of the computation is a phase of
+# the K1 harness (csrc/stereo_bm.cu `Phase`, tpuslam_torch/tools/
+# probe_bm_parts.py).  Internal order is j = ndisp-1-d, cost_rev[j] the
+# window SAD at j.  The two outputs of each phase, per (B, H, W) pixel:
+#   prefilter  the prefiltered left and right images (uint8)
+#   vbox       the vertical (2r+1)-row sum of plane j = 0, and the sum over
+#              all ndisp+1 planes (texture and disparities) of theirs
+#   boxes      cost_rev[0], and the texture box sum + sum_j cost_rev[j]
+#   winner     best_j (internal), minsad
+#   sad        cost_rev[best_j-1] (0 at best_j = 0) and cost_rev[best_j+1]
+#              (0 at best_j = ndisp-1), before the edge swap
+#   uniq       the uniqueness flag (0/1), minsad
+#   full       disparity and minsad (int16), StereoBM's own outputs
+# Every output is int32 except where noted.
+PHASES = ("prefilter", "vbox", "boxes", "winner", "sad", "uniq", "full")
+
+
+def _check_phase(phase: str) -> None:
+    if phase not in PHASES:
+        raise ValueError(f"unknown StereoBM phase {phase!r}: {PHASES}")
+
+
+def _sad_planes(lp, rp, cfg: StereoBMConfig):
+    """The texture plane |Lp - ftzero| and the (ndisp, H, W) absolute
+    differences |Lp(x) - Rp(x - d)| in internal order (plane j holds
+    d = ndisp-1-j), zero right pixels for x < d; int32 in, int32 out."""
+    ndisp = cfg.num_disparities
+    h, w = lp.shape
+    rshift = torch.zeros((ndisp, h, w), dtype=torch.int32, device=lp.device)
+    for d in range(ndisp):
+        rshift[ndisp - 1 - d, :, d:] = rp[:, :w - d]
+    return (lp - cfg.prefilter_cap).abs(), (lp[None] - rshift).abs()
+
+
+def _winner(cost_rev):
+    """The first minimum over j, i.e. ties go to the larger disparity ->
+    (minsad, best_j)."""
+    ndisp = cost_rev.shape[0]
+    jj = torch.arange(ndisp, device=cost_rev.device).view(ndisp, 1, 1)
+    minsad = cost_rev.amin(dim=0)
+    best_j = torch.where(cost_rev == minsad, jj, ndisp).amin(dim=0)
+    return minsad, best_j
+
+
+def _neighbour_sads(cost_rev, best_j):
+    """(cost_rev[best_j-1], cost_rev[best_j+1]), each 0 where it falls
+    outside [0, ndisp)."""
+    ndisp = cost_rev.shape[0]
+    lo = cost_rev.gather(0, (best_j - 1).clamp(min=0)[None])[0]
+    hi = cost_rev.gather(0, (best_j + 1).clamp(max=ndisp - 1)[None])[0]
+    return (torch.where(best_j > 0, lo, 0),
+            torch.where(best_j < ndisp - 1, hi, 0))
+
+
+def _uniqueness(cost_rev, minsad, best_j, ratio: int):
+    """False where a cost more than one step from best_j lies within
+    `ratio` percent of minsad."""
+    if ratio <= 0:
+        return torch.ones_like(best_j, dtype=torch.bool)
+    ndisp = cost_rev.shape[0]
+    jj = torch.arange(ndisp, device=cost_rev.device).view(ndisp, 1, 1)
+    thresh = minsad + (minsad * ratio) // 100
+    far = (jj - best_j[None]).abs() > 1
+    return ~((cost_rev <= thresh[None]) & far).any(dim=0)
+
+
+def _epilogue(minsad, best_j, sad_n, sad_p, tex, uniq_ok,
+              cfg: StereoBMConfig):
+    """x16 subpixel from the neighbour SADs and the validity gates ->
+    (H, W) int32 disparity, (mindisp - 1) * 16 where invalid."""
     ndisp = cfg.num_disparities
     r = cfg.block_size // 2
     mindisp = cfg.min_disparity
-    ftzero = cfg.prefilter_cap
-    filtered = (mindisp - 1) * FILTERED_SCALE
-    h, w = left.shape
-    dev = left.device
-
-    lp = prefilter_xsobel(left, ftzero).to(torch.int32)
-    rp = prefilter_xsobel(right, ftzero).to(torch.int32)
-
-    # cost[d, y, x] = window SAD(L(x), R(x - d)), zeros for x < d
-    rshift = torch.zeros((ndisp, h, w), dtype=torch.int32, device=dev)
-    for d in range(ndisp):
-        rshift[d, :, d:] = rp[:, :w - d]
-    cost = _box_sum((lp[None] - rshift).abs(), r)
-    tex_ok = _box_sum((lp - ftzero).abs(), r) >= cfg.texture_threshold
-
-    # winner in OpenCV's reversed internal order j = ndisp-1-d: the first
-    # minimum over j, i.e. ties go to the larger disparity
-    cost_rev = cost.flip(0)
-    jj = torch.arange(ndisp, device=dev).view(ndisp, 1, 1)
-    minsad = cost_rev.amin(dim=0)
-    mind_int = torch.where(cost_rev == minsad, jj, ndisp).amin(dim=0)
-    d_act = ndisp - 1 - mind_int
-
-    if cfg.uniqueness_ratio > 0:
-        thresh = minsad + (minsad * cfg.uniqueness_ratio) // 100
-        far = (jj - mind_int[None]).abs() > 1
-        uniq_ok = ~((cost_rev <= thresh[None]) & far).any(dim=0)
-    else:
-        uniq_ok = torch.ones_like(tex_ok)
-
-    # x16 subpixel from the neighbour SADs; sad[-1] := sad[1] and
-    # sad[ndisp] := sad[ndisp-2] in internal order
-    lo = torch.where(mind_int == 0, 1, mind_int - 1)
-    hi = torch.where(mind_int == ndisp - 1, ndisp - 2, mind_int + 1)
-    sad_n = cost_rev.gather(0, lo[None])[0]
-    sad_p = cost_rev.gather(0, hi[None])[0]
+    h, w = minsad.shape
+    dev = minsad.device
+    # sad[-1] := sad[1] and sad[ndisp] := sad[ndisp-2] in internal order
+    sad_n, sad_p = (torch.where(best_j == 0, sad_p, sad_n),
+                    torch.where(best_j == ndisp - 1, sad_n, sad_p))
     denom = sad_p + sad_n - 2 * minsad + (sad_p - sad_n).abs()
     num = (sad_p - sad_n) * 256
     # C integer division truncates toward zero
     frac = torch.where(denom != 0,
                        num.sign() * (num.abs() // denom.clamp(min=1)), 0)
-    disp16 = ((d_act + mindisp) * 256 + frac + 15) >> 4
-
+    disp16 = ((ndisp - 1 - best_j + mindisp) * 256 + frac + 15) >> 4
     ys = torch.arange(h, device=dev).view(h, 1)
     xs = torch.arange(w, device=dev).view(1, w)
     valid = ((ys >= r) & (ys < h - r) &
              (xs >= mindisp + ndisp - 1 + r) & (xs < w - r) &
-             tex_ok & uniq_ok)
-    disp = torch.where(valid, disp16, filtered)
+             (tex >= cfg.texture_threshold) & uniq_ok)
+    return torch.where(valid, disp16, (mindisp - 1) * FILTERED_SCALE)
+
+
+def _stereo_bm_frame(left, right, cfg: StereoBMConfig, phase: str = "full"):
+    """One (H, W) uint8 pair -> the two outputs of `phase` (see PHASES);
+    "full" gives (disp int16, minsad int16)."""
+    r = cfg.block_size // 2
+    lp = prefilter_xsobel(left, cfg.prefilter_cap)
+    rp = prefilter_xsobel(right, cfg.prefilter_cap)
+    if phase == "prefilter":
+        return lp, rp
+    i32 = torch.int32
+    tex_plane, planes = _sad_planes(lp.to(i32), rp.to(i32), cfg)
+    if phase == "vbox":
+        v = _vbox_sum(planes, r)
+        return (v[0].to(i32),
+                (_vbox_sum(tex_plane, r) + v.sum(dim=0)).to(i32))
+    cost_rev = _box_sum(planes, r)
+    tex = _box_sum(tex_plane, r)
+    if phase == "boxes":
+        return cost_rev[0], tex + cost_rev.sum(dim=0, dtype=i32)
+    minsad, best_j = _winner(cost_rev)
+    if phase == "winner":
+        return best_j.to(i32), minsad
+    sad_n, sad_p = _neighbour_sads(cost_rev, best_j)
+    if phase == "sad":
+        return sad_n, sad_p
+    uniq_ok = _uniqueness(cost_rev, minsad, best_j, cfg.uniqueness_ratio)
+    if phase == "uniq":
+        return uniq_ok.to(i32), minsad
+    disp = _epilogue(minsad, best_j, sad_n, sad_p, tex, uniq_ok, cfg)
     return disp.to(torch.int16), minsad.to(torch.int16)
+
+
+def _stack_frames(left, right, cfg, phase):
+    """Frames run one at a time to bound the (ndisp, H, W) cost volume."""
+    outs = [_stereo_bm_frame(l, r, cfg, phase) for l, r in zip(left, right)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
 
 
 def stereo_bm_plain(left: torch.Tensor, right: torch.Tensor,
                     cfg: StereoBMConfig = StereoBMConfig()):
     """Plain PyTorch StereoBM over (B, H, W) uint8 pairs ->
-    (disp (B, H, W) int16, minsad (B, H, W) int16).  Frames run one at a
-    time to bound the (ndisp, H, W) cost volume."""
+    (disp (B, H, W) int16, minsad (B, H, W) int16)."""
     _cuda.PLAIN_CALLS["stereo_bm"] += 1
-    outs = [_stereo_bm_frame(l, r, cfg) for l, r in zip(left, right)]
-    return (torch.stack([o[0] for o in outs]),
-            torch.stack([o[1] for o in outs]))
+    return _stack_frames(left, right, cfg, "full")
 
 
-def stereo_bm_cuda(left: torch.Tensor, right: torch.Tensor,
-                   cfg: StereoBMConfig = StereoBMConfig()):
-    """Kernel K1 (csrc/stereo_bm.cu): same contract as stereo_bm_plain."""
+def stereo_bm_phase_plain(left: torch.Tensor, right: torch.Tensor,
+                          cfg: StereoBMConfig, phase: str):
+    """Plain PyTorch StereoBM over (B, H, W) uint8 pairs cut after `phase`
+    -> its two (B, H, W) outputs (PHASES gives them and their types); the
+    twin of the K1 phase harness."""
+    _check_phase(phase)
+    _cuda.PLAIN_CALLS["stereo_bm_phase"] += 1
+    return _stack_frames(left, right, cfg, phase)
+
+
+def _check_bm_args(left, right, cfg: StereoBMConfig) -> None:
+    """What kernel K1 takes: a CUDA uint8 (B, H, W) pair, 64 disparities,
+    an odd block of 3..31, at least 3x3 pixels."""
     _cuda.expect(left, "left", torch.uint8, 3)
     _cuda.expect(right, "right", torch.uint8, 3)
     if right.shape != left.shape or right.device != left.device:
@@ -143,19 +233,49 @@ def stereo_bm_cuda(left: torch.Tensor, right: torch.Tensor,
             "csrc/stereo_bm.cu is built for num_disparities=64")
     if cfg.block_size % 2 == 0 or not 3 <= cfg.block_size <= 31:
         raise ValueError(f"block_size {cfg.block_size}: odd, 3..31")
-    B, H, W = left.shape
-    if H < 3 or W < 3:
+    if left.shape[1] < 3 or left.shape[2] < 3:
         raise ValueError("image smaller than 3x3")
+
+
+def _bm_params(left, cfg: StereoBMConfig):
+    B, H, W = left.shape
+    return (B, H, W, cfg.block_size // 2, cfg.min_disparity,
+            cfg.prefilter_cap, cfg.uniqueness_ratio, cfg.texture_threshold)
+
+
+def stereo_bm_cuda(left: torch.Tensor, right: torch.Tensor,
+                   cfg: StereoBMConfig = StereoBMConfig()):
+    """Kernel K1 (csrc/stereo_bm.cu): same contract as stereo_bm_plain."""
+    _check_bm_args(left, right, cfg)
     lp = torch.empty_like(left)          # prefiltered images (scratch)
     rp = torch.empty_like(right)
     disp = torch.empty_like(left, dtype=torch.int16)
     minsad = torch.empty_like(left, dtype=torch.int16)
     with torch.cuda.device(left.device):
-        _cuda.launch("stereo_bm", left, right, lp, rp, disp, minsad, B, H,
-                     W, cfg.block_size // 2, cfg.min_disparity,
-                     cfg.prefilter_cap, cfg.uniqueness_ratio,
-                     cfg.texture_threshold)
+        _cuda.launch("stereo_bm", left, right, lp, rp, disp, minsad,
+                     *_bm_params(left, cfg))
     return disp, minsad
+
+
+def stereo_bm_phase_cuda(left: torch.Tensor, right: torch.Tensor,
+                         cfg: StereoBMConfig, phase: str):
+    """The K1 phase harness (csrc/stereo_bm.cu, tpuslam_stereo_bm_phase):
+    K1's prefilter launch and, past `prefilter`, K1's kernel cut after
+    `phase`.  Same contract as stereo_bm_phase_plain; no plain fallback."""
+    _check_phase(phase)
+    _check_bm_args(left, right, cfg)
+    lp = torch.empty_like(left)
+    rp = torch.empty_like(right)
+    if phase == "prefilter":
+        outs = (lp, rp)
+    else:
+        dt = torch.int16 if phase == "full" else torch.int32
+        outs = (torch.empty_like(left, dtype=dt),
+                torch.empty_like(left, dtype=dt))
+    with torch.cuda.device(left.device):
+        _cuda.launch("stereo_bm_phase", left, right, lp, rp, *outs,
+                     *_bm_params(left, cfg), PHASES.index(phase))
+    return outs
 
 
 def _lr_consistency(disp: torch.Tensor, minsad: torch.Tensor,
@@ -267,3 +387,19 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor,
     if cfg.disp12_max_diff >= 0:
         disp = lr_check(disp, minsad, cfg)
     return disp
+
+
+def stereo_bm_phase_occupancy(phase: str):
+    """(registers per thread, shared bytes per block, blocks per SM) of the
+    harness's K1 kernel cut after `phase` (not `prefilter`) on the current
+    card; every cut runs at K1's (`full`) blocks per SM."""
+    _check_phase(phase)
+    if phase == "prefilter":
+        raise ValueError("the prefilter phase runs no cut of K1's kernel")
+    out = (ctypes.c_int * 3)()
+    rc = _cuda.function("stereo_bm", "tpuslam_stereo_bm_phase_occupancy",
+                        [ctypes.c_int, ctypes.c_void_p])(
+        PHASES.index(phase), out)
+    if rc != 0:
+        raise RuntimeError(f"occupancy of K1 phase {phase}: cudaError {rc}")
+    return tuple(out)
