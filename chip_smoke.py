@@ -165,29 +165,32 @@ def kernel_phase(lefts, rights, cfg):
     px = B * H * W
 
     # K1: disparity and min-SAD of 30 frames.  Bound: the pair in (2 B),
-    # disparity and min-SAD out (4 B) per pixel; per pixel and disparity
-    # an absolute difference, two running-sum updates per box direction
-    # and a compare (6 operations)
+    # int16 disparity and int32 min-SAD out (6 B) per pixel; per pixel and
+    # disparity an absolute difference, two running-sum updates per box
+    # direction and a compare (6 operations)
     kb = BM.stereo_bm_cuda(lefts, rights, cfg.bm)
     pb = BM.stereo_bm_plain(lefts, rights, cfg.bm)
     record(rows, "stereo_bm", "tpuslam_torch/csrc/stereo_bm.cu",
            "tpuslam/kernels/stereo_bm_pallas.py:423",
            lambda: BM.stereo_bm_cuda(lefts, rights, cfg.bm),
            lambda: BM.stereo_bm_plain(lefts, rights, cfg.bm), kb, pb,
-           6 * px, 6 * cfg.bm.num_disparities * px)
+           8 * px, 6 * cfg.bm.num_disparities * px)
     valid_px = float((pb[0] >= 0).float().mean())
-    log(f"# stereo_bm: {valid_px:.3f} of pixels hold a disparity")
+    regs, smem, blocks = BM.stereo_bm_phase_occupancy("full")
+    log(f"# stereo_bm: {valid_px:.3f} of pixels hold a disparity; "
+        f"{regs} registers, {smem} B shared memory, {blocks} blocks of "
+        f"256 threads per SM")
 
-    # K5: the left-right check on K1's outputs.  Bound: disparity and
-    # min-SAD in, disparity out (6 B per pixel); ~20 integer operations
-    # per pixel for the projection and the two checks
+    # K5: the left-right check on K1's outputs.  Bound: int16 disparity
+    # and int32 min-SAD in, int16 disparity out (8 B per pixel); ~20
+    # integer operations per pixel for the projection and the two checks
     kl = BM.lr_check_cuda(*kb, cfg.bm)
     pl = BM.lr_check_plain(*pb, cfg.bm)
     record(rows, "lr_check", "tpuslam_torch/csrc/lr_check.cu",
            "tpuslam/kernels/stereo_bm_pallas.py:355",
            lambda: BM.lr_check_cuda(*kb, cfg.bm),
            lambda: BM.lr_check_plain(*pb, cfg.bm), (kl,), (pl,),
-           6 * px, 20 * px)
+           8 * px, 20 * px)
     log(f"# lr_check: {int((kl != kb[0]).sum())} pixels invalidated")
 
     # K2: response (compared bit for bit) and dilation.  Bound: image in

@@ -199,7 +199,7 @@ def _kernel_cases():
     a = torch.rand(1, 32)
     m = torch.rand(1, 32) < 0.5
     disp = torch.full((1, 40, 48), 80, dtype=torch.int16)
-    minsad = torch.zeros((1, 40, 48), dtype=torch.int16)
+    minsad = torch.zeros((1, 40, 48), dtype=torch.int32)
     obj = torch.rand(16, 3) + torch.tensor([0.0, 0.0, 5.0])
     lm = (obj, torch.rand(16, 2) * 100, torch.ones(16),
           torch.ones(16, dtype=torch.bool), torch.eye(3), torch.zeros(3),

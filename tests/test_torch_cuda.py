@@ -44,27 +44,57 @@ def _slice_cfg():
                                 pnp=PnPConfig(refine_iterations=0))
 
 
-def test_stereo_bm_kernel(pair):
+def _sawtooth_pair(h=101, w=333):
+    """A rising sawtooth (8 grey levels per pixel, period 32) on the left
+    and the falling one on the right: at prefilter_cap 63 the prefiltered
+    left sits at 126 and the right at 0 almost everywhere, so every cost is
+    near 126 * (2r+1)^2.  Neither side is a whole number of K1's tiles."""
+    ramp = (np.arange(w) % 32 * 8).astype(np.uint8)
+    left = np.broadcast_to(ramp, (2, h, w))
+    right = np.broadcast_to(248 - ramp, (2, h, w))
+    return (torch.as_tensor(np.ascontiguousarray(left)).cuda(),
+            torch.as_tensor(np.ascontiguousarray(right)).cuda())
+
+
+@pytest.mark.parametrize("case", ["fixture", "wide_minsad"])
+def test_stereo_bm_kernel(pair, case):
+    """K1 equals its plain twin: on the fixture in the slice's settings,
+    and on a pair whose min-SAD lies between 32768 and 65535 (cap 63,
+    block 21), which K1 writes as int32."""
+    from tpuslam_torch.config import StereoBMConfig
     from tpuslam_torch.kernels import stereo_bm as T
-    cfg = _slice_cfg().bm
-    kd, ks = T.stereo_bm_cuda(*pair, cfg)
-    pd, ps = T.stereo_bm_plain(*pair, cfg)
+    if case == "fixture":
+        args, cfg = pair, _slice_cfg().bm
+    else:
+        args = _sawtooth_pair()
+        cfg = StereoBMConfig(prefilter_cap=63, block_size=21)
+    kd, ks = T.stereo_bm_cuda(*args, cfg)
+    pd, ps = T.stereo_bm_plain(*args, cfg)
     torch.cuda.synchronize()
+    assert ks.dtype == ps.dtype == torch.int32
     assert torch.equal(kd, pd)
     assert torch.equal(ks, ps)
-    assert (pd >= 0).float().mean() > 0.2
+    if case == "fixture":
+        assert (pd >= 0).float().mean() > 0.2
+    else:
+        assert 32767 < int(ps.max()) <= 65535
 
 
+@pytest.mark.parametrize("crop", [False, True])
 @pytest.mark.parametrize("phase", ["prefilter", "vbox", "boxes", "winner",
                                    "sad", "uniq", "full"])
-def test_stereo_bm_phase_kernel(pair, phase):
+def test_stereo_bm_phase_kernel(pair, phase, crop):
     """The K1 phase harness: each cut of K1 equals its plain twin bit for
     bit, the full cut equals K1, each cut runs at K1's occupancy, and a
-    harness launch counts only as itself."""
+    harness launch counts only as itself; also on a crop of 373x629, not
+    a whole number of K1's 32x8 tiles, whose last row of tiles ends
+    inside the image (the vertical pass's outside-image mask)."""
     from tpuslam_torch.config import StereoBMConfig
     from tpuslam_torch.kernels import _cuda
     from tpuslam_torch.kernels import stereo_bm as T
     cfg = StereoBMConfig()
+    if crop:
+        pair = tuple(t[:, :373, :629].contiguous() for t in pair)
     _cuda.reset_counters()
     got = T.stereo_bm_phase_cuda(*pair, cfg, phase)
     torch.cuda.synchronize()
@@ -129,6 +159,7 @@ def test_lr_check_kernel(pair):
     from tpuslam_torch.kernels import stereo_bm as T
     cfg = StereoBMConfig()
     disp, minsad = T.stereo_bm_cuda(*pair, cfg)
+    assert minsad.dtype == torch.int32
     k = T.lr_check_cuda(disp, minsad, cfg)
     p = T.lr_check_plain(disp, minsad, cfg)
     torch.cuda.synchronize()

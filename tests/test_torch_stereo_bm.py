@@ -66,7 +66,8 @@ def test_disparity_bit_equal(stereo_pair, rows):
     assert disp.dtype == ref.dtype == np.int16
     np.testing.assert_array_equal(disp, ref)
     assert (ref > 0).mean() > 0.2          # the fixture really matches
-    # minsad is bounded by 62 * 21^2 and int16
+    # minsad is int32, as the reference keeps it, and at most 62 * 21^2
+    assert minsad.dtype == np.int32
     assert minsad.min() >= 0 and minsad.max() <= 62 * 441
 
 
@@ -107,6 +108,60 @@ def test_lr_check_raises(stereo_pair):
     with pytest.raises(ValueError):
         T.lr_check_cuda(disp, minsad[:, :32], StereoBMConfig())
     assert _cuda.LAUNCHES["lr_check"] == 0
+
+
+def _c1_pair():
+    """A pair whose min-SAD passes 32767 at prefilter_cap 63 and block 25:
+    the right image is the left one shifted by 20 columns under strong
+    noise, so no disparity matches well."""
+    rng = np.random.default_rng(145)
+    base = rng.integers(0, 256, (64, 384)).astype(np.float64)
+    base = np.stack([np.convolve(row, np.ones(2) / 2, "same")
+                     for row in base])
+    left = base[:, 80:304]
+    right = base[:, 100:324] + rng.normal(0, 200, (64, 224))
+    return (np.clip(left, 0, 255).astype(np.uint8),
+            np.clip(right, 0, 255).astype(np.uint8))
+
+
+def test_minsad_wider_than_int16():
+    """Min-SAD above 32767 reaches the left-right check unwrapped: the
+    port's stereo_bm equals tpuslam's bit for bit (with an int16 min-SAD
+    it differed at 4 pixels), and K1, whose costs are uint16, refuses the
+    configuration before any build or launch."""
+    from tpuslam_torch.kernels import _cuda
+    left, right = _c1_pair()
+    kw = dict(prefilter_cap=63, block_size=25)
+    ref = np.asarray(J.stereo_bm(left, right, JCfg(**kw),
+                                 with_speckle=False))
+    lt, rt = torch.as_tensor(left)[None], torch.as_tensor(right)[None]
+    _cuda.reset_counters()
+    np.testing.assert_array_equal(
+        T.stereo_bm(lt, rt, StereoBMConfig(**kw))[0].numpy(), ref)
+    minsad = T.stereo_bm_plain(lt, rt, StereoBMConfig(**kw))[1]
+    assert minsad.dtype == torch.int32 and int(minsad.max()) > 32767
+    with pytest.raises(ValueError, match="uint16 cost limit"):
+        T.stereo_bm_cuda(lt, rt, StereoBMConfig(**kw))
+    assert _cuda.LAUNCHES["stereo_bm"] == 0
+
+
+@pytest.mark.parametrize("cap,block,accepted", [
+    (63, 21, True), (63, 23, False), (31, 31, True), (34, 31, True),
+    (35, 31, False)])
+def test_k1_cost_limit(cap, block, accepted):
+    """K1 takes a configuration exactly when 2 * cap * block**2 <= 65535
+    (34 * 2 * 961 = 65348, 35 * 2 * 961 = 67270), and says so before it
+    looks at the tensors: an accepted one goes on to refuse CPU tensors."""
+    from tpuslam_torch.kernels import _cuda
+    img = torch.zeros((1, 40, 48), dtype=torch.uint8)
+    cfg = StereoBMConfig(prefilter_cap=cap, block_size=block)
+    _cuda.reset_counters()
+    for fn in (T.stereo_bm_cuda,
+               lambda a, b, c: T.stereo_bm_phase_cuda(a, b, c, "vbox")):
+        with pytest.raises(ValueError, match="CUDA tensor" if accepted
+                           else "uint16 cost limit"):
+            fn(img, img, cfg)
+    assert sum(_cuda.LAUNCHES.values()) == 0
 
 
 def _lr_ref(disp, minsad, **kw):
@@ -171,11 +226,13 @@ def test_default_config_bit_equal(stereo_pair, rows):
 
 # --- the K1 phase harness's plain twin -------------------------------------
 
-PHASE_DTYPES = dict(prefilter=np.uint8, vbox=np.int32, boxes=np.int32,
-                    winner=np.int32, sad=np.int32, uniq=np.int32,
-                    full=np.int16)
+_I32 = (np.int32, np.int32)
+PHASE_DTYPES = dict(prefilter=(np.uint8, np.uint8), vbox=_I32, boxes=_I32,
+                    winner=_I32, sad=_I32, uniq=_I32,
+                    full=(np.int16, np.int32))
 # sha256 of stereo_bm_plain's (disp, minsad) bytes on _phase_pair(rng),
-# taken from the code before StereoBM was split into phases
+# taken from the code before StereoBM was split into phases, when minsad
+# was int16
 PLAIN_DIGEST = \
     "272f8e29120cfbf11c06a010abf9e371b003469f398a92f58e7151036ffaf098"
 
@@ -272,9 +329,9 @@ def test_phase_plain_matches_reference(rng, phase):
     assert sum(_cuda.LAUNCHES.values()) == 0
     for i in range(len(lefts)):
         ref = _ref_phase(lefts[i], rights[i], phase)
-        for g, want in zip(got, ref):
+        for g, want, dtype in zip(got, ref, PHASE_DTYPES[phase]):
             g = g[i].numpy()
-            assert g.dtype == PHASE_DTYPES[phase]
+            assert g.dtype == dtype
             np.testing.assert_array_equal(g.astype(np.int64),
                                           want.astype(np.int64))
 
@@ -289,8 +346,12 @@ def test_phase_full_is_stereo_bm_plain(rng):
     disp, minsad = T.stereo_bm_plain(lefts, rights, cfg)
     full = T.stereo_bm_phase_plain(lefts, rights, cfg, "full")
     assert torch.equal(full[0], disp) and torch.equal(full[1], minsad)
+    # minsad is int32 now; its values here are far below 32767, so the
+    # int16 cast gives the same bytes the digest was taken of
+    assert int(minsad.max()) < 2 ** 15
     digest = hashlib.sha256(disp.numpy().tobytes() +
-                            minsad.numpy().tobytes()).hexdigest()
+                            minsad.to(torch.int16).numpy().tobytes()
+                            ).hexdigest()
     assert digest == PLAIN_DIGEST
     assert (disp >= 0).any()
 
@@ -318,13 +379,14 @@ def test_probe_needs_the_card(monkeypatch):
     bound model gives the full phase the bytes of K1's own function (the
     pair in, disparity and min-SAD out) and every phase's operations; a
     phase adds bytes only where its outputs grow (the prefiltered pair,
-    then two int32 planes)."""
+    then two int32 planes; the full phase's int16 disparity and int32
+    min-SAD are fewer)."""
     from tpuslam_torch.tools import probe_bm_parts as PB
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         PB.main()
     added, (full_bytes, full_ops) = PB.phase_work(1)
     assert list(added) == list(T.PHASES)
-    assert full_bytes == 6
+    assert full_bytes == 8
     assert full_ops == sum(o for _, o in added.values())
     assert [b for b, _ in added.values()] == [4, 6, 0, 0, 0, 0, 0]

@@ -8,7 +8,7 @@
 //   tpuslam_torch/kernels/stereo_bm.py:_lr_consistency
 // (itself bit-equal to tpuslam.kernels.stereo_bm._lr_consistency).  Input:
 // K1's int16 disparity (x16, `filtered` = (mindisp - 1) * 16 where
-// invalid) and int16 per-pixel minimum SAD, (B, H, W).  Output: the
+// invalid) and int32 per-pixel minimum SAD, (B, H, W).  Output: the
 // disparity with the inconsistent pixels set to `filtered`.
 //
 // A pixel x participates when it is valid and x >= mindisp + ndisp.
@@ -27,9 +27,11 @@
 // mindisp = 0, and >> of a negative value is the arithmetic shift the
 // plain version uses.
 //
-// What bounds it on this card: bytes.  It reads 2 int16 inputs and writes
-// one int16 output per pixel (6 bytes, ~84 MB for a 30-frame 1241x376
-// chunk, ~25 us at 3.35 TB/s); the work per pixel is a few integer ops.
+// What bounds it on this card: bytes.  It reads an int16 and an int32
+// input and writes one int16 output per pixel (8 bytes, ~112 MB for a
+// 30-frame 1241x376 chunk, ~33 us at 3.35 TB/s); the work per pixel is a
+// few integer ops.  The key minsad * 4096 + dv stays below 2^31: K1's
+// costs are at most 65535.
 // Design: one block per (frame, row), the row's disparity and the
 // right-image winners in shared memory (8 bytes per column), so both
 // passes touch device memory once per input and output.  A row is
@@ -46,7 +48,7 @@ constexpr int NT = 256;
 constexpr int INF = 0x7fffffff;
 
 __global__ void __launch_bounds__(NT)
-lr_kernel(const int16_t* __restrict__ disp, const int16_t* __restrict__ minsad,
+lr_kernel(const int16_t* __restrict__ disp, const int* __restrict__ minsad,
           int16_t* __restrict__ out, int W, int mindisp, int ndisp,
           int md16) {
   extern __shared__ int sm[];
@@ -71,7 +73,7 @@ lr_kernel(const int16_t* __restrict__ disp, const int16_t* __restrict__ minsad,
     if (dint < kmin || dint > kmax) continue;      // outside the 65 shifts
     const int x2 = x - dint;
     if (x2 < 0 || x2 >= W) continue;
-    atomicMin(&best[x2], (int)minsad[base + x] * 4096 + (d - mindisp * 16));
+    atomicMin(&best[x2], minsad[base + x] * 4096 + (d - mindisp * 16));
   }
   __syncthreads();
   for (int x = threadIdx.x; x < W; x += NT) {
@@ -116,7 +118,7 @@ extern "C" int tpuslam_lr_check(const void* disp, const void* minsad,
   }
   cudaStream_t s = (cudaStream_t)stream;
   lr_kernel<<<B * H, NT, smem, s>>>((const int16_t*)disp,
-                                    (const int16_t*)minsad, (int16_t*)out,
+                                    (const int*)minsad, (int16_t*)out,
                                     W, mindisp, ndisp, md16);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,8 @@
 // order j = 63 - d (ties go to the larger disparity); uniqueness and
 // texture gates; x16 subpixel with C's truncating division;
 // (mindisp - 1) * 16 at invalid pixels.  Also writes the per-pixel
-// minimum SAD (int16), which the left-right check consumes.
+// minimum SAD (int32, as the reference keeps it), which the left-right
+// check consumes.
 //
 // What bounds it on this card: integer ALU work, ~(2r+1) * 2 adds per
 // pixel per disparity for the two box passes (about 50 G integer ops for
@@ -25,8 +26,10 @@
 // extra columns the shifts reach, then for the texture image and each
 // disparity forms vertical (2r+1)-row sums of |L - R_d| in shared memory
 // and the horizontal sum per output pixel.  The 64 costs of each pixel
-// stay in shared memory (uint16: at most 62 * 31^2 = 59582) for the
-// winner, uniqueness and subpixel epilogue.  All arithmetic is integer,
+// stay in shared memory as uint16 for the winner, uniqueness and subpixel
+// epilogue: a cost is at most 2 * prefilter_cap * (2r+1)^2, and the
+// wrapper (kernels/stereo_bm.py _check_bm_args) refuses a configuration
+// where that passes 65535.  All arithmetic is integer,
 // so CUDA's `/` is C's division and no TPU float workaround is needed.
 // Simple and right first; a faster design (running box sums, int8 MMA
 // for the horizontal box) is later work.
@@ -60,6 +63,8 @@ constexpr int RCOLS = LCOLS + NDISP - 1;
 
 // the harness's cut points, in order (kernels/stereo_bm.py PHASES)
 enum Phase { PREFILTER, VBOX, BOXES, WINNER, SAD, UNIQ, FULL, NPHASES };
+// a cut's first output: K1's int16 disparity at FULL, else int32; the
+// second output (min-SAD at FULL) is int32 at every cut
 template <int STOP>
 using Out = typename std::conditional<STOP == FULL, int16_t, int>::type;
 
@@ -100,7 +105,7 @@ __device__ __forceinline__ int live(int tex, int v) {
 template <int STOP>
 __global__ void __launch_bounds__(NT)
 bm_kernel(const uint8_t* __restrict__ lp, const uint8_t* __restrict__ rp,
-          Out<STOP>* __restrict__ disp, Out<STOP>* __restrict__ minsad_out,
+          Out<STOP>* __restrict__ disp, int* __restrict__ minsad_out,
           int H, int W, int r, int mindisp, int ftzero, int uniq,
           int tex_thr) {
   __shared__ int16_t Ls[ROWS][LCOLS];     // -1 marks outside the image
@@ -219,7 +224,7 @@ bm_kernel(const uint8_t* __restrict__ lp, const uint8_t* __restrict__ rp,
                x < W - r && tex >= tex_thr && uniq_ok;
   long o = frame + (long)y * W + x;
   disp[o] = (int16_t)(valid ? v : (mindisp - 1) * 16);
-  minsad_out[o] = (int16_t)best;
+  minsad_out[o] = best;
 }
 
 // Launch 2 cut after STOP runs at bm_kernel<FULL>'s occupancy: a cut
@@ -262,7 +267,7 @@ cudaError_t launch_bm(dim3 grid, cudaStream_t s, const uint8_t* lp,
   cudaError_t e = fit_occupancy<STOP>(&pad, &blocks);
   if (e != cudaSuccess) return e;
   bm_kernel<STOP><<<grid, dim3(TX, TY), pad, s>>>(
-      lp, rp, (Out<STOP>*)out0, (Out<STOP>*)out1, H, W, r, mindisp, ftzero,
+      lp, rp, (Out<STOP>*)out0, (int*)out1, H, W, r, mindisp, ftzero,
       uniq, tex_thr);
   return cudaGetLastError();
 }
@@ -304,13 +309,13 @@ extern "C" int tpuslam_stereo_bm(const void* left, const void* right,
   dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
   bm_kernel<FULL><<<grid, dim3(TX, TY), 0, s>>>(
       (const uint8_t*)lp_scratch, (const uint8_t*)rp_scratch,
-      (int16_t*)disp, (int16_t*)minsad, H, W, r, mindisp, ftzero, uniq,
+      (int16_t*)disp, (int*)minsad, H, W, r, mindisp, ftzero, uniq,
       tex_thr);
   return (int)cudaGetLastError();
 }
 
 // The phase harness: launch 1 into lp/rp and, past PREFILTER, launch 2
-// cut after `phase` into out0/out1 (int32; int16 for FULL).
+// cut after `phase` into out0/out1 (int32; out0 int16 for FULL).
 extern "C" int tpuslam_stereo_bm_phase(const void* left, const void* right,
                                        void* lp, void* rp, void* out0,
                                        void* out1, int B, int H, int W,

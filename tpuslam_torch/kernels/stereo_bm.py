@@ -85,7 +85,7 @@ def _box_sum(x: torch.Tensor, radius: int) -> torch.Tensor:
 #   sad        cost_rev[best_j-1] (0 at best_j = 0) and cost_rev[best_j+1]
 #              (0 at best_j = ndisp-1), before the edge swap
 #   uniq       the uniqueness flag (0/1), minsad
-#   full       disparity and minsad (int16), StereoBM's own outputs
+#   full       disparity (int16) and minsad, StereoBM's own outputs
 # Every output is int32 except where noted.
 PHASES = ("prefilter", "vbox", "boxes", "winner", "sad", "uniq", "full")
 
@@ -167,7 +167,7 @@ def _epilogue(minsad, best_j, sad_n, sad_p, tex, uniq_ok,
 
 def _stereo_bm_frame(left, right, cfg: StereoBMConfig, phase: str = "full"):
     """One (H, W) uint8 pair -> the two outputs of `phase` (see PHASES);
-    "full" gives (disp int16, minsad int16)."""
+    "full" gives (disp int16, minsad int32)."""
     r = cfg.block_size // 2
     lp = prefilter_xsobel(left, cfg.prefilter_cap)
     rp = prefilter_xsobel(right, cfg.prefilter_cap)
@@ -193,7 +193,7 @@ def _stereo_bm_frame(left, right, cfg: StereoBMConfig, phase: str = "full"):
     if phase == "uniq":
         return uniq_ok.to(i32), minsad
     disp = _epilogue(minsad, best_j, sad_n, sad_p, tex, uniq_ok, cfg)
-    return disp.to(torch.int16), minsad.to(torch.int16)
+    return disp.to(torch.int16), minsad
 
 
 def _stack_frames(left, right, cfg, phase):
@@ -206,7 +206,7 @@ def _stack_frames(left, right, cfg, phase):
 def stereo_bm_plain(left: torch.Tensor, right: torch.Tensor,
                     cfg: StereoBMConfig = StereoBMConfig()):
     """Plain PyTorch StereoBM over (B, H, W) uint8 pairs ->
-    (disp (B, H, W) int16, minsad (B, H, W) int16)."""
+    (disp (B, H, W) int16, minsad (B, H, W) int32)."""
     _cuda.PLAIN_CALLS["stereo_bm"] += 1
     return _stack_frames(left, right, cfg, "full")
 
@@ -221,9 +221,22 @@ def stereo_bm_phase_plain(left: torch.Tensor, right: torch.Tensor,
     return _stack_frames(left, right, cfg, phase)
 
 
+# K1 keeps the 64 costs of a pixel as uint16: a cost is at most
+# 2 * prefilter_cap * block_size**2
+K1_MAX_COST = 65535
+
+
 def _check_bm_args(left, right, cfg: StereoBMConfig) -> None:
-    """What kernel K1 takes: a CUDA uint8 (B, H, W) pair, 64 disparities,
-    an odd block of 3..31, at least 3x3 pixels."""
+    """What kernel K1 takes: a configuration whose costs fit its uint16
+    (checked first, so that it is refused whatever the tensors), a CUDA
+    uint8 (B, H, W) pair, 64 disparities, an odd block of 3..31, at least
+    3x3 pixels."""
+    max_cost = 2 * cfg.prefilter_cap * cfg.block_size ** 2
+    if max_cost > K1_MAX_COST:
+        raise ValueError(
+            f"prefilter_cap {cfg.prefilter_cap}, block_size "
+            f"{cfg.block_size}: a SAD reaches 2 * cap * block**2 = "
+            f"{max_cost} > {K1_MAX_COST}, K1's uint16 cost limit")
     _cuda.expect(left, "left", torch.uint8, 3)
     _cuda.expect(right, "right", torch.uint8, 3)
     if right.shape != left.shape or right.device != left.device:
@@ -250,7 +263,7 @@ def stereo_bm_cuda(left: torch.Tensor, right: torch.Tensor,
     lp = torch.empty_like(left)          # prefiltered images (scratch)
     rp = torch.empty_like(right)
     disp = torch.empty_like(left, dtype=torch.int16)
-    minsad = torch.empty_like(left, dtype=torch.int16)
+    minsad = torch.empty_like(left, dtype=torch.int32)
     with torch.cuda.device(left.device):
         _cuda.launch("stereo_bm", left, right, lp, rp, disp, minsad,
                      *_bm_params(left, cfg))
@@ -269,9 +282,9 @@ def stereo_bm_phase_cuda(left: torch.Tensor, right: torch.Tensor,
     if phase == "prefilter":
         outs = (lp, rp)
     else:
-        dt = torch.int16 if phase == "full" else torch.int32
-        outs = (torch.empty_like(left, dtype=dt),
-                torch.empty_like(left, dtype=dt))
+        outs = (torch.empty_like(left, dtype=torch.int16 if phase == "full"
+                                 else torch.int32),
+                torch.empty_like(left, dtype=torch.int32))
     with torch.cuda.device(left.device):
         _cuda.launch("stereo_bm_phase", left, right, lp, rp, *outs,
                      *_bm_params(left, cfg), PHASES.index(phase))
@@ -281,7 +294,7 @@ def stereo_bm_phase_cuda(left: torch.Tensor, right: torch.Tensor,
 def _lr_consistency(disp: torch.Tensor, minsad: torch.Tensor,
                     cfg: StereoBMConfig) -> torch.Tensor:
     """Left-right consistency (cv::validateDisparity) over (B, H, W)
-    int16 disparity and min-SAD -> (B, H, W) int16; the reference's
+    int16 disparity and int32 min-SAD -> (B, H, W) int16; the reference's
     static-shift form, step for step.
 
     Projection pass: every participating left pixel x (valid, x >=
@@ -353,9 +366,9 @@ def lr_check_plain(disp: torch.Tensor, minsad: torch.Tensor,
 def lr_check_cuda(disp: torch.Tensor, minsad: torch.Tensor,
                   cfg: StereoBMConfig = StereoBMConfig()) -> torch.Tensor:
     """Kernel K5 (csrc/lr_check.cu): same contract as lr_check_plain, on
-    K1's (B, H, W) int16 disparity and min-SAD."""
+    K1's (B, H, W) int16 disparity and int32 min-SAD."""
     _cuda.expect(disp, "disp", torch.int16, 3)
-    _cuda.expect(minsad, "minsad", torch.int16, 3)
+    _cuda.expect(minsad, "minsad", torch.int32, 3)
     if minsad.shape != disp.shape or minsad.device != disp.device:
         raise ValueError("disp/minsad must share shape and device")
     B, H, W = disp.shape

@@ -15,7 +15,7 @@ points; kernels/stereo_bm.py PHASES lists them and their two outputs:
     winner     p3min             the first minimum over disparities
     sad        p3sad             the two neighbour SADs
     uniq       p3uniq            the uniqueness gate
-    full       full              subpixel, gates, int16 outputs (K1 itself)
+    full       full              subpixel, gates, K1's outputs (K1 itself)
 
 Input: the main path's first chunk, the first 30 frames of the bench
 sequence (bench.py:30-37, rendered on the card).  A phase's time is the
@@ -71,7 +71,7 @@ DROP_TOL = 0.05
 # per pixel: bytes of the phase's two outputs, operations the phase adds
 PHASE_WORK = {"prefilter": (2, 16), "vbox": (8, 3 * 65),
               "boxes": (8, 2 * 65), "winner": (8, 64), "sad": (8, 2),
-              "uniq": (8, 2 * 64), "full": (4, 20)}
+              "uniq": (8, 2 * 64), "full": (6, 20)}
 PAIR_BYTES = 2
 
 
