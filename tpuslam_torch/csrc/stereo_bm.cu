@@ -15,24 +15,34 @@
 // minimum SAD (int32, as the reference keeps it), which the left-right
 // check consumes.
 //
-// What bounds it on this card: integer ALU work, ~(2r+1) * 2 adds per
-// pixel per disparity for the two box passes (about 50 G integer ops for
-// a 30-frame 1241x376 chunk); the two prefiltered images (1 byte/pixel)
-// are read once per tile and stay in shared memory.
+// What bounds it on this card: instruction issue, not memory.  The two
+// prefiltered images (1 byte/pixel) are read once per tile and stay in
+// shared memory; the time goes to the box passes' shared-memory taps.
 //
 // Design: launch 1 prefilters both images into uint8 scratch.  Launch 2
 // gives each block a 32x8 output tile of one frame; the block stages the
 // left tile with its box halo and the right tile with halo plus the 63
-// extra columns the shifts reach, then for the texture image and each
-// disparity forms vertical (2r+1)-row sums of |L - R_d| in shared memory
-// and the horizontal sum per output pixel.  The 64 costs of each pixel
-// stay in shared memory as uint16 for the winner, uniqueness and subpixel
-// epilogue: a cost is at most 2 * prefilter_cap * (2r+1)^2, and the
-// wrapper (kernels/stereo_bm.py _check_bm_args) refuses a configuration
-// where that passes 65535.  All arithmetic is integer,
-// so CUDA's `/` is C's division and no TPU float workaround is needed.
-// Simple and right first; a faster design (running box sums, int8 MMA
-// for the horizontal box) is later work.
+// extra columns the shifts reach.  Then, for the 65 planes (the texture
+// image |L - ftzero|, then |L - R_d| for each disparity), GP = 4 planes
+// at a time:
+// - the vertical pass: one thread per (plane, staged column) forms the
+//   column's 8 vertical (2r+1)-row sums as a running sum, 2r+1 terms for
+//   the first row and then one term added and one removed per row
+//   (2r+1 + 14 terms instead of 8 * (2r+1)); a term is 0 where the left
+//   pixel lies outside the image, on the added and the removed row alike,
+//   so each sum equals the direct (2r+1)-row sum exactly;
+// - the horizontal pass: each thread sums 2r+1 vertical sums of its
+//   output pixel per plane.
+// That is 17 steps of two barriers per tile.  The vertical sums are
+// uint16 in shared memory (a sum is at most 2 * prefilter_cap * (2r+1),
+// below the cost limit) so that four planes fit the 48 KB of static
+// shared memory.  The 64 costs of each pixel stay in shared memory as
+// uint16 for the winner, uniqueness and subpixel epilogue: a cost is at
+// most 2 * prefilter_cap * (2r+1)^2, and the wrapper (kernels/
+// stereo_bm.py _check_bm_args) refuses a configuration where that passes
+// 65535.  All arithmetic is integer, so CUDA's `/` is C's division and no
+// TPU float workaround is needed.  Next (ROADMAP): the horizontal pass as
+// a running sum, a harness cut after staging, and wider prefilter loads.
 //
 // The phase harness (tpuslam_stereo_bm_phase) replaces the TPU timing
 // probe tools/probe_bm_parts.py:148 (the strip kernel cut after each of
@@ -60,6 +70,9 @@ constexpr int RMAX = 15;             // block_size <= 31
 constexpr int ROWS = TY + 2 * RMAX;
 constexpr int LCOLS = TX + 2 * RMAX;
 constexpr int RCOLS = LCOLS + NDISP - 1;
+constexpr int NPLANES = NDISP + 1;   // the texture image, then 64 disparities
+constexpr int GP = 4;                // planes per step: GP * LCOLS <= NT
+static_assert(GP * LCOLS <= NT, "one thread per plane and column");
 
 // the harness's cut points, in order (kernels/stereo_bm.py PHASES)
 enum Phase { PREFILTER, VBOX, BOXES, WINNER, SAD, UNIQ, FULL, NPHASES };
@@ -110,7 +123,7 @@ bm_kernel(const uint8_t* __restrict__ lp, const uint8_t* __restrict__ rp,
           int tex_thr) {
   __shared__ int16_t Ls[ROWS][LCOLS];     // -1 marks outside the image
   __shared__ uint8_t Rs[ROWS][RCOLS];
-  __shared__ int Vs[TY][LCOLS];
+  __shared__ uint16_t Vs[GP][TY][LCOLS];
   __shared__ uint16_t costs[NDISP][NT];
 
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
@@ -136,32 +149,42 @@ bm_kernel(const uint8_t* __restrict__ lp, const uint8_t* __restrict__ rp,
   }
   __syncthreads();
 
-  // k = -1: the texture image |L - ftzero|; k = d: |L(x) - R(x - d)|
+  // plane p of the 65 is k = p - 1: k = -1 the texture image
+  // |L - ftzero|, k = d the absolute difference |L(x) - R(x - d)|.  This
+  // thread's vertical pass: plane g of each group, staged column xx.
+  const int g = tid / lcols, xx = tid % lcols;
   int tex = 0;
   int vsum = 0, v0 = 0;      // VBOX: all planes' vertical sums, plane j = 0
-  for (int k = -1; k < NDISP; ++k) {
-    for (int i = tid; i < TY * lcols; i += NT) {
-      int oy = i / lcols, xx = i % lcols;
+  for (int p0 = 0; p0 < NPLANES; p0 += GP) {
+    const int k = p0 + g - 1;
+    if (g < GP && k < NDISP) {
+      const int rx = xx + NDISP - 1 - k;
+      auto term = [&](int row) {     // 0 outside the image (Ls < 0)
+        int l = Ls[row][xx];
+        int rv = (k < 0) ? ftzero : (int)Rs[row][rx];
+        return l >= 0 ? abs(l - rv) : 0;
+      };
       int s = 0;
-      for (int t = 0; t < win; ++t) {
-        int l = Ls[oy + t][xx];
-        if (l >= 0) {
-          int rv = (k < 0) ? ftzero : (int)Rs[oy + t][xx + NDISP - 1 - k];
-          s += abs(l - rv);
-        }
+      for (int t = 0; t < win; ++t) s += term(t);
+      Vs[g][0][xx] = (uint16_t)s;
+      for (int oy = 1; oy < TY; ++oy) {
+        s += term(oy - 1 + win) - term(oy - 1);
+        Vs[g][oy][xx] = (uint16_t)s;
       }
-      Vs[oy][xx] = s;
     }
     __syncthreads();
-    if constexpr (STOP == VBOX) {
-      int v = Vs[ty][tx + r];
-      vsum += v;
-      if (k == NDISP - 1) v0 = v;
-    } else {
-      int c = 0;
-      for (int t = 0; t < win; ++t) c += Vs[ty][tx + t];
-      if (k < 0) tex = c;
-      else costs[k][tid] = (uint16_t)c;
+    for (int q = 0; q < GP && p0 + q < NPLANES; ++q) {
+      const int kq = p0 + q - 1;
+      if constexpr (STOP == VBOX) {
+        int v = Vs[q][ty][tx + r];
+        vsum += v;
+        if (kq == NDISP - 1) v0 = v;
+      } else {
+        int c = 0;
+        for (int t = 0; t < win; ++t) c += Vs[q][ty][tx + t];
+        if (kq < 0) tex = c;
+        else costs[kq][tid] = (uint16_t)c;
+      }
     }
     __syncthreads();
   }
