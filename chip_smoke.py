@@ -11,9 +11,12 @@ tpuslam.  Phases, each of which raises on failure:
    in parallel into build/tpuslam_torch/ and print the seconds;
 3. kernels: render the bench's 1241x376 sequence on the card, then hold
    each kernel to its plain PyTorch version at main-path shapes and time
-   both (median of 20 runs, CUDA events): K1 StereoBM, K2 GFTT
-   response+dilation, K3 ORB, K4 covariance medians and K5 LR check
-   exactly;
+   both (tpuslam_torch/tools/timing.py: median of 20 runs between CUDA
+   events behind a ~1 ms spin, so the host's dispatch stays out; the
+   kernel's unspun time, dispatch included, beside it as call_ms; the
+   card's launch floor, an empty spin timed the same way, once): K1
+   StereoBM, K2 GFTT response+dilation, K3 ORB, K4 covariance medians and
+   K5 LR check exactly;
 4. K1 phases: the phase harness (tpuslam_torch/tools/probe_bm_parts.py)
    on the same chunk: K1 cut after each of its seven phases, each cut
    equal to its plain twin (the full one also to K1), each timed;
@@ -44,7 +47,6 @@ nvidia-smi line, and last
 import argparse
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -66,12 +68,8 @@ MAX_LOST, MIN_MEDIAN_INLIERS, MAX_T_ERR_PCT = 0, 300, 1.0
 # (main path: 0.4727-0.5654 m over ten seeds on the card)
 ATE_BOUND_M = 0.75
 SLICE_ATE_BOUND_M = 1.0
-TIMING_RUNS = 20
 # K6 against its plain version: f32 reduction order (tests/test_pnp.py)
 LM_TOL = dict(rvec=1e-5, tvec=1e-4, inlier_px=2.0)
-# published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
-# 32-bit non-tensor operations/s, for the bound of each kernel
-HBM_BPS, OPS_32 = 3.35e12, 67e12
 
 
 def log(msg):
@@ -92,32 +90,8 @@ def device_phase():
     return smi
 
 
-def time_ms(fn, runs=TIMING_RUNS):
-    """Median device time of fn() in ms over `runs` calls (CUDA events),
-    after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(runs):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        out.append(s.elapsed_time(e))
-    return statistics.median(out)
-
-
 def max_abs_err(a, b):
     return float((a.double() - b.double()).abs().max())
-
-
-def bound(nbytes, ops):
-    """Least time in ms for moving `nbytes` and doing `ops` 32-bit
-    operations at the card's peaks, and which of the two sets it."""
-    tb, to = nbytes / HBM_BPS * 1e3, ops / OPS_32 * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def recording_refines(n_calls):
@@ -140,7 +114,9 @@ def recording_refines(n_calls):
 def record(rows, name, src, replaces, kernel, plain, outs_k, outs_p,
            nbytes, ops, tol=0.0):
     """Hold a kernel's outputs to its plain version's within `tol`, time
-    both, and add the kernel's row to `rows`."""
+    both (spun; the kernel also unspun), and add the kernel's row to
+    `rows`."""
+    from tpuslam_torch.tools.timing import bound, call_ms, time_ms
     err = max(max_abs_err(k, p) for k, p in zip(outs_k, outs_p))
     if not err <= tol:
         raise AssertionError(f"{name}: kernel differs from plain "
@@ -148,11 +124,13 @@ def record(rows, name, src, replaces, kernel, plain, outs_k, outs_p,
     b_ms, b_by = bound(nbytes, ops)
     rows[name] = dict(name=name, route="cuda", source=src,
                       replaces=replaces, max_abs_err=err,
-                      ms=time_ms(kernel), plain_ms=time_ms(plain),
-                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                      ms=time_ms(kernel), call_ms=call_ms(kernel),
+                      plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+                      library_ms=None)
     log(f"# {name}: max abs err {err} (tolerance {tol}); kernel "
-        f"{rows[name]['ms']:.3f} ms, plain {rows[name]['plain_ms']:.3f}"
-        f" ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{rows[name]['ms']:.4f} ms (unspun {rows[name]['call_ms']:.4f} "
+        f"ms), plain {rows[name]['plain_ms']:.3f} ms, bound {b_ms:.5f} ms "
+        f"({b_by})")
 
 
 def kernel_phase(lefts, rights, cfg):
@@ -273,8 +251,8 @@ def k1_phases_phase(rows, lefts, rights, cfg):
         phases={n: {k: p[k] for k in ("ms", "net_ms", "bound_ms", "bound_by",
                                        "blocks_per_sm") if k in p}
                 for n, p in res["phases"].items()},
-        **{k: res[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                               "bound_ms", "bound_by")})
+        **{k: res[k] for k in ("launches", "max_abs_err", "ms", "call_ms",
+                               "plain_ms", "bound_ms", "bound_by")})
 
 
 def lm_phase(rows, frame1_args, camera, cfg):
@@ -493,6 +471,7 @@ def main():
     from tpuslam_torch.config import SlamConfig
     from tpuslam_torch.io.synthetic import make_sequence, sequence_camera
     from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    from tpuslam_torch.tools.timing import floor_ms
 
     t0 = time.perf_counter()
     took = _cuda.build_all()
@@ -510,6 +489,9 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     camera = sequence_camera(WIDTH, HEIGHT, FOCAL, BASELINE)
 
+    floor = floor_ms()
+    log(f"# launch floor: {floor:.4f} ms (an empty spin between two events,"
+        f" behind the ~1 ms spin)")
     chunk = (lefts[:CHUNK].contiguous(), rights[:CHUNK].contiguous())
     rows = kernel_phase(*chunk, cfg)
     k1_phases_phase(rows, *chunk, cfg)
@@ -530,13 +512,15 @@ def main():
     for name, row in rows.items():
         if name in _cuda.KERNELS:
             row["launches"] = launches[name]
-        if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms",
-                                                    "bound_ms")):
+        row["floor_ms"] = floor
+        if not all(math.isfinite(row[k]) for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "floor_ms")):
             raise AssertionError(f"{name}: a time is not finite: {row}")
     kernels = [{k: rows[n][k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "phases")
-        if k in rows[n]} for n in _cuda.KERNELS + _cuda.TOOLS]
+        "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
+        "library_ms", "phases") if k in rows[n]}
+        for n in _cuda.KERNELS + _cuda.TOOLS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,9 +20,11 @@ points; kernels/stereo_bm.py PHASES lists them and their two outputs:
 Input: the main path's first chunk, the first 30 frames of the bench
 sequence (bench.py:30-37, rendered on the card).  A phase's time is the
 device time of K1's prefilter launch and its kernel cut after the phase,
-the median of 20 runs between CUDA events (the interquartile range
-beside it); its net time is what it adds over the phase before.  CUDA events hold no host dispatch, so no floor is
-subtracted (the probe subtracted one timed on the host).  A phase that
+the median of 20 runs between CUDA events behind a ~1 ms spin
+(tools/timing.py; the interquartile range beside it); its net time is what
+it adds over the phase before.  The spin keeps the host's dispatch out of
+the events, so no floor is subtracted (the probe subtracted one timed on
+the host).  A phase that
 times more than DROP_TOL below the phase before has lost work to the
 compiler, and the harness raises.  Every cut of K1's kernel runs at K1's
 blocks per SM (the launcher pads a cut that needs fewer registers or less
@@ -56,12 +58,8 @@ import torch
 from ..config import StereoBMConfig
 from ..kernels import _cuda
 from ..kernels import stereo_bm as BM
+from .timing import TIMING_RUNS, bound, call_ms, time_ms, times_ms
 
-# published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
-# 32-bit non-tensor operations/s
-HBM_BPS, OPS_32 = 3.35e12, 67e12
-TIMING_RUNS = 20
-SPIN_CYCLES = 2_000_000              # ~1 ms at the H100's clocks
 # the bench sequence (bench.py:30-37) and the main path's chunk
 BENCH = dict(n_frames=120, width=1241, height=376, f=718.856, baseline=0.54,
              speed=1.4, yaw_rate=0.003, seed=11)
@@ -73,38 +71,6 @@ PHASE_WORK = {"prefilter": (2, 16), "vbox": (8, 3 * 65),
               "boxes": (8, 2 * 65), "winner": (8, 64), "sad": (8, 2),
               "uniq": (8, 2 * 64), "full": (6, 20)}
 PAIR_BYTES = 2
-
-
-def time_ms(fn, runs=TIMING_RUNS):
-    """Median device time of fn() in ms over `runs` calls."""
-    return statistics.median(times_ms(fn, runs))
-
-
-def times_ms(fn, runs=TIMING_RUNS):
-    """Device times of fn() in ms over `runs` calls (CUDA events), after
-    one warm-up call.  A ~1 ms spin queued before each start event keeps
-    the card busy while the host dispatches fn, so the events hold the
-    kernels' time and not the host's."""
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(runs):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        out.append(s.elapsed_time(e))
-    return out
-
-
-def bound(nbytes, ops):
-    """Least time in ms for moving `nbytes` and doing `ops` 32-bit
-    operations at the card's peaks, and which of the two sets it."""
-    tb, to = nbytes / HBM_BPS * 1e3, ops / OPS_32 * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def phase_work(px: int):
@@ -127,8 +93,8 @@ def run(lefts: torch.Tensor, rights: torch.Tensor,
     timed.  Raises on a mismatch or a phase that lost work.  Returns the
     numbers: per phase ms, its interquartile range, net ms, share of the
     full phase, the bound of what it adds and its occupancy; the full
-    phase's ms, bound, and the ms of its plain twin and of K1 itself; the
-    harness's launches."""
+    phase's ms, its unspun ms (host dispatch included), bound, and the ms
+    of its plain twin and of K1 itself; the harness's launches."""
     n0 = _cuda.LAUNCHES["stereo_bm_phase"]
     k1 = BM.stereo_bm_cuda(lefts, rights, cfg)
     added, (full_bytes, full_ops) = phase_work(lefts.numel())
@@ -167,8 +133,11 @@ def run(lefts: torch.Tensor, rights: torch.Tensor,
     plain_ms = time_ms(lambda: BM.stereo_bm_phase_plain(
         lefts, rights, cfg, "full"), runs)
     k1_ms = time_ms(lambda: BM.stereo_bm_cuda(lefts, rights, cfg), runs)
+    full_call_ms = call_ms(lambda: BM.stereo_bm_phase_cuda(
+        lefts, rights, cfg, "full"), runs)
     b_ms, b_by = bound(full_bytes, full_ops)
-    return dict(phases=phases, ms=prev_ms, plain_ms=plain_ms, k1_ms=k1_ms,
+    return dict(phases=phases, ms=prev_ms, call_ms=full_call_ms,
+                plain_ms=plain_ms, k1_ms=k1_ms,
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                 launches=_cuda.LAUNCHES["stereo_bm_phase"] - n0)
 
@@ -185,7 +154,8 @@ def table(res) -> str:
         lines.append(f"{name:10s} {p['ms']:9.3f} {p['iqr_ms']:7.3f} "
                      f"{p['net_ms']:9.3f} {100 * p['share']:6.1f}% "
                      f"{p['bound_ms']:9.4f} {p['bound_by']:>10s} {occ}")
-    lines.append(f"full phase: {res['ms']:.3f} ms, K1 itself "
+    lines.append(f"full phase: {res['ms']:.3f} ms (unspun "
+                 f"{res['call_ms']:.3f} ms), K1 itself "
                  f"{res['k1_ms']:.3f} ms, plain twin {res['plain_ms']:.3f} "
                  f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
                  f"{res['launches']} launches")
