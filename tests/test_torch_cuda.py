@@ -167,15 +167,22 @@ def test_lr_check_kernel(pair):
     assert 0 < int((k != disp).sum()) < 0.05 * disp.numel()
 
 
-@pytest.mark.parametrize("case", ["perturbed", "zero_rvec", "capacity"])
+_LM_K = np.array([[718.856, 0.0, 607.1928], [0.0, 718.856, 185.2157],
+                  [0.0, 0.0, 1.0]])
+# N per case: the capacity, and around K6's 384 point threads with 4
+# points each in registers: below one point per thread, not a multiple of
+# 384, and past the register-resident points (the strided tail)
+_LM_N = {"perturbed": 300, "zero_rvec": 300, "capacity": 1536, "n40": 40,
+         "n1000": 1000, "n2000": 2000}
+
+
+@pytest.mark.parametrize("case", list(_LM_N))
 def test_lm_refine_kernel(pair, case):
     from tpuslam_torch.io.synthetic import pnp_scene
     from tpuslam_torch.kernels import pnp as T
     rng = np.random.default_rng(11)
-    n = 1536 if case == "capacity" else 300
-    K = np.array([[718.856, 0.0, 607.1928], [0.0, 718.856, 185.2157],
-                  [0.0, 0.0, 1.0]])
-    args, _, _ = pnp_scene(rng, n, K,
+    n = _LM_N[case]
+    args, _, _ = pnp_scene(rng, n, _LM_K,
                            np.zeros(3) if case == "zero_rvec" else None)
     rk, tk, ek = T.refine_lm_errors_cuda(*args)
     rp, tp, ep = T.refine_lm_with_errors(*args)
@@ -184,6 +191,19 @@ def test_lm_refine_kernel(pair, case):
     torch.testing.assert_close(tk, tp, rtol=0, atol=1e-4)
     assert torch.equal(ek <= 2.0, ep <= 2.0)
     assert int((ek <= 2.0).sum()) > 0.6 * n
+
+
+def test_lm_refine_deterministic(pair):
+    """Two launches on the same inputs give the same bits: K6's
+    reductions have a fixed order and no atomics."""
+    from tpuslam_torch.io.synthetic import pnp_scene
+    from tpuslam_torch.kernels import pnp as T
+    args, _, _ = pnp_scene(np.random.default_rng(5), 1536, _LM_K)
+    r1, t1, e1 = T.refine_lm_errors_cuda(*args)
+    r2, t2, e2 = T.refine_lm_errors_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in ((r1, r2), (t1, t2), (e1, e2)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_dispatch_counts_kernels_not_plain(pair):

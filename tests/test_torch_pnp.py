@@ -152,6 +152,25 @@ def test_refine_dispatch_plain_on_cpu(rng):
     assert sum(_cuda.LAUNCHES.values()) == 0
 
 
+def test_normal_eqs_translation_block(rng):
+    """du/dty and dv/dtx are 0, so the plain version's H[tx, ty] is
+    exactly 0: kernel K6 leaves those products out of its sums."""
+    obj, img_n, _, _ = _problem(rng, 200, noise=0.01)
+    w = torch.as_tensor((rng.uniform(size=200) < 0.7).astype(np.float32))
+    p = torch.as_tensor(rng.normal(0, 0.2, 6).astype(np.float32))
+    H, _, _ = T._normal_eqs(torch.as_tensor(obj), torch.as_tensor(img_n),
+                            w, p)
+    assert float(H[3, 4]) == 0.0 and float(H[4, 3]) == 0.0
+    assert float(H[3, 3]) > 0.0
+
+
+def test_lm_block_sweep_needs_the_card(monkeypatch):
+    from tpuslam_torch.tools import lm_block_sweep
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        lm_block_sweep.main([])
+
+
 @pytest.mark.parametrize("seed", [0, 5])
 def test_solve_pnp_ransac_matches(rng, seed):
     """The host driver with tpuslam's own draws (PRNGKey(seed)): the same
