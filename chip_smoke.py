@@ -16,7 +16,9 @@ tpuslam.  Phases, each of which raises on failure:
    kernel's unspun time, dispatch included, beside it as call_ms; the
    card's launch floor, an empty spin timed the same way, once): K1
    StereoBM, K2 GFTT response+dilation, K3 ORB, K4 covariance medians and
-   K5 LR check exactly;
+   K5 LR check exactly, and K3's two halves alone (the `orb_blur` and
+   `orb_tests` tool launchers) each against its plain half; print K3's and
+   K4's registers and shared memory;
 4. K1 phases: the phase harness (tpuslam_torch/tools/probe_bm_parts.py)
    on the same chunk: K1 cut after each of its seven phases, each cut
    equal to its plain twin (the full one also to K1), each timed;
@@ -133,6 +135,20 @@ def record(rows, name, src, replaces, kernel, plain, outs_k, outs_p,
         f"({b_by})")
 
 
+def sampled_pixels(kp, valid, H, W):
+    """The distinct in-image pixels that K3's tests read at the valid
+    keypoints (B, K, 2): the bytes its tests half must load."""
+    from tpuslam_torch.kernels import orb as O
+    dxs, dys, _ = O._const_angle_offsets(-1.0)
+    cx, cy = O._centers(kp, H, W)
+    dev = kp.device
+    x = cx[..., None] + torch.as_tensor(dxs, device=dev).long()
+    y = cy[..., None] + torch.as_tensor(dys, device=dev).long()
+    frame = torch.arange(kp.shape[0], device=dev)[:, None, None]
+    keep = valid[..., None] & (x >= 0) & (x < W) & (y >= 0) & (y < H)
+    return int(torch.unique(((frame * H + y) * W + x)[keep]).numel())
+
+
 def kernel_phase(lefts, rights, cfg):
     """K1-K5 against their plain versions on the card, at main-path
     shapes: the first 30-frame chunk of the rendered sequence."""
@@ -210,6 +226,29 @@ def kernel_phase(lefts, rights, cfg):
            lambda: O.orb_descriptors_cuda(lefts, kp, valid),
            lambda: O.orb_descriptors_plain(lefts, kp, valid),
            (kdsc,), (pdsc,), px + 40 * nkp, 28 * px + 256 * nkp)
+    # K3's halves alone (tool launchers), each against its plain half.
+    # Blur bound: the image in and the blurred image out (2 B per pixel),
+    # 28 operations per pixel.  Tests bound: the distinct blurred pixels
+    # that this run's keypoints sample, keypoints in and descriptors out,
+    # 256 compares per keypoint
+    kblur = O.orb_blur_cuda(lefts)
+    pblur = O.orb_blur(lefts)
+    record(rows, "orb_blur", "tpuslam_torch/csrc/orb.cu",
+           "tpuslam/kernels/orb.py:283",
+           lambda: O.orb_blur_cuda(lefts), lambda: O.orb_blur(lefts),
+           (kblur,), (pblur,), 2 * px, 28 * px)
+    ktst = O.orb_tests_cuda(pblur, kp, valid)
+    ptst = O.descriptors_from_blurred(pblur, kp, valid)
+    record(rows, "orb_tests", "tpuslam_torch/csrc/orb.cu",
+           "tpuslam/kernels/orb.py:283",
+           lambda: O.orb_tests_cuda(pblur, kp, valid),
+           lambda: O.descriptors_from_blurred(pblur, kp, valid),
+           (ktst,), (ptst,), sampled_pixels(kp, valid, H, W) + 40 * nkp,
+           256 * nkp)
+    for half, a in O.orb_kernel_attrs().items():
+        log(f"# orb {half} kernel: {a['registers']} registers, "
+            f"{a['shared_bytes']} B shared memory, {a['local_bytes']} B "
+            f"local memory per thread")
 
     # K4: ties, +inf, all-masked and one-valid rows, N = capacity.  Bound
     # (timed row): two f32 rows and the mask in (9 B per entry), a few
@@ -512,6 +551,11 @@ def main():
     for name, row in rows.items():
         if name in _cuda.KERNELS:
             row["launches"] = launches[name]
+        elif name in ("orb_blur", "orb_tests"):
+            # the halves' kernels run on the main path inside K3's
+            # launches; their own tool launchers never do
+            row.update(launches=launches["orb"], via="orb",
+                       tool_launches=launches[name])
         row["floor_ms"] = floor
         if not all(math.isfinite(row[k]) for k in (
                 "ms", "call_ms", "plain_ms", "bound_ms", "floor_ms")):
@@ -519,7 +563,7 @@ def main():
     kernels = [{k: rows[n][k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
-        "library_ms", "phases") if k in rows[n]}
+        "library_ms", "via", "tool_launches", "phases") if k in rows[n]}
         for n in _cuda.KERNELS + _cuda.TOOLS]
     print(json.dumps({"kernels": kernels}))
     print(smi)

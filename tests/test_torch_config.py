@@ -241,16 +241,34 @@ def test_dispatch_takes_plain_version_on_cpu(name):
     assert sum(_cuda.LAUNCHES.values()) == 0
 
 
+@pytest.mark.parametrize("name", ["orb_blur", "orb_tests"])
+def test_orb_half_wrapper_refuses_cpu_tensors(name):
+    """K3's halves as tool launchers check their arguments before any
+    build or launch, as K3's wrapper does."""
+    from tpuslam_torch.kernels import _cuda, orb as O
+    img = torch.zeros((1, 40, 48), dtype=torch.uint8)
+    kp = torch.full((1, 8, 2), 20.0)
+    valid = torch.ones((1, 8), dtype=torch.bool)
+    call = {"orb_blur": lambda: O.orb_blur_cuda(img),
+            "orb_tests": lambda: O.orb_tests_cuda(img, kp, valid)}[name]
+    _cuda.reset_counters()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
+    assert sum(_cuda.LAUNCHES.values()) == 0
+
+
 def test_kernel_table_names_every_kernel():
     """Every launcher has a signature, counters and a source; the phase
-    harness is a tool in K1's file, not a kernel of the main path."""
+    harness is a tool in K1's file and K3's two halves tools in K3's, not
+    kernels of the main path."""
     from tpuslam_torch.kernels import _cuda
     assert list(_cuda.KERNELS) == KERNELS
-    assert list(_cuda.TOOLS) == ["stereo_bm_phase"]
+    assert list(_cuda.TOOLS) == ["stereo_bm_phase", "orb_blur", "orb_tests"]
     names = KERNELS + list(_cuda.TOOLS)
     assert set(_cuda.SIGNATURES) == set(names)
     assert set(_cuda.LAUNCHES) == set(_cuda.PLAIN_CALLS) == set(names)
     assert _cuda.source("stereo_bm_phase") == "stereo_bm"
+    assert _cuda.source("orb_blur") == _cuda.source("orb_tests") == "orb"
     for name in names:
         assert os.path.exists(os.path.join(ROOT, "tpuslam_torch", "csrc",
                                            f"{_cuda.source(name)}.cu"))

@@ -120,17 +120,73 @@ def test_gftt_kernel(pair):
     assert torch.equal(kd, pd)
 
 
-def test_orb_kernel(pair):
+def _random_keypoints(B, K, H, W, seed):
+    """Keypoints anywhere in (and a pixel past) the image, 80 % valid."""
+    rng = np.random.default_rng(seed)
+    xy = np.stack([rng.uniform(-1.0, W, (B, K)),
+                   rng.uniform(-1.0, H, (B, K))], axis=-1)
+    return (torch.as_tensor(xy.astype(np.float32)).cuda(),
+            torch.as_tensor(rng.uniform(size=(B, K)) < 0.8).cuda())
+
+
+def _orb_case(pair, case):
+    """(image, keypoints, valid) of one K3 case."""
+    img = pair[0]
+    B, H, W = img.shape
+    if case == "fixture":
+        from tpuslam_torch.vo.fused import detect_keypoints
+        kp, valid, n_k = detect_keypoints(img.cpu(), _slice_cfg())
+        assert int(n_k.min()) > 100
+        return img, kp[..., :2].contiguous().cuda(), valid.cuda()
+    if case == "crop":                  # not a whole number of blur tiles
+        img = img[:, :101, :333].contiguous()
+        return (img,) + _random_keypoints(B, 300, 101, 333, 1)
+    if case == "four_rows":             # reflect-101 across the image
+        img = img[:, 100:104].contiguous()
+        return (img,) + _random_keypoints(B, 200, 4, W, 2)
+    if case == "corners":               # samples outside read 0
+        c = [(0, 0), (W - 1, 0), (0, H - 1), (W - 1, H - 1),
+             (-0.4, H - 0.6), (W - 0.5, 0.5)]
+        kp = torch.tensor([c] * B, dtype=torch.float32).cuda()
+        return img, kp, torch.ones(kp.shape[:2], dtype=torch.bool).cuda()
+    if case == "all_invalid":
+        kp, _ = _random_keypoints(B, 64, H, W, 3)
+        return img, kp, torch.zeros(kp.shape[:2], dtype=torch.bool).cuda()
+    if case == "k0":
+        return (img,) + _random_keypoints(B, 0, H, W, 4)
+    if case == "odd_count":             # B x K = 3 x 13, not a multiple
+        img = torch.cat([img, img[:1]]).contiguous()   # of 8 per block
+        return (img,) + _random_keypoints(3, 13, H, W, 5)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["fixture", "crop", "four_rows", "corners",
+                                  "all_invalid", "k0", "odd_count"])
+def test_orb_kernel(pair, case):
+    """K3 equals its plain twin bit for bit, and each of its halves as a
+    tool launcher equals its plain half: on the fixture's keypoints, on a
+    crop that is not a whole number of blur tiles, on 4 rows (reflect-101
+    reaches across the image), with keypoints at the corners (samples
+    outside the image read 0), with every row invalid, with no keypoints
+    and with a keypoint count that fills no whole block."""
+    from tpuslam_torch.kernels import _cuda
     from tpuslam_torch.kernels import orb as T
-    from tpuslam_torch.vo.fused import detect_keypoints
-    kp, valid, n_k = detect_keypoints(pair[0].cpu(), _slice_cfg())
-    assert int(n_k.min()) > 100
-    kp = kp[..., :2].contiguous().cuda()
-    valid = valid.cuda()
-    k = T.orb_descriptors_cuda(pair[0], kp, valid)
-    p = T.orb_descriptors_plain(pair[0], kp, valid)
+    img, kp, valid = _orb_case(pair, case)
+    _cuda.reset_counters()
+    k = T.orb_descriptors_cuda(img, kp, valid)
+    kb = T.orb_blur_cuda(img)
+    pb = T.orb_blur(img)
+    kt = T.orb_tests_cuda(pb, kp, valid)
+    p = T.orb_descriptors_plain(img, kp, valid)
     torch.cuda.synchronize()
     assert torch.equal(k, p)
+    assert torch.equal(kb, pb)
+    assert torch.equal(kt, T.descriptors_from_blurred(pb, kp, valid))
+    assert not k[~valid].any()
+    assert (_cuda.LAUNCHES["orb"], _cuda.LAUNCHES["orb_blur"],
+            _cuda.LAUNCHES["orb_tests"]) == (1, 1, 1)
+    if case in ("fixture", "crop", "corners"):
+        assert k.any()
 
 
 def test_median_kernel(pair):
@@ -283,5 +339,6 @@ def test_default_config_chunk_runs_all_kernels():
     assert not outs["lost"][1:].any()
     assert dict(_cuda.LAUNCHES) == dict(stereo_bm=1, gftt=1, orb=1,
                                         median=B, lr_check=1, lm_refine=B,
-                                        stereo_bm_phase=0)
+                                        stereo_bm_phase=0, orb_blur=0,
+                                        orb_tests=0)
     assert not any(_cuda.PLAIN_CALLS.values())

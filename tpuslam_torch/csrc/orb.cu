@@ -14,17 +14,33 @@
 // samples outside the image read 0.  Invalid keypoints get zero rows.
 //
 // The Pallas kernel wrote 32 dense byte planes for every pixel because the
-// TPU has no fast gather; here descriptors are computed only at the
-// (<= 1536 per frame) keypoints, which gives the same bits.  A blur
-// result that lands on .5 must round the same way, so this file is
-// compiled with -fmad=false (no FMA contraction).
+// TPU has no fast gather; here the tests run only at the (<= 1536 per
+// frame) keypoints, which gives the same bits.  A blur result that lands
+// on .5 must round the same way, so this file is compiled with
+// -fmad=false (no FMA contraction), and the taps are neither paired nor
+// run as sums: each sum is the plain version's, term by term.
 //
-// What bounds it on this card: arithmetic — each of the 512 samples of a
-// keypoint recomputes its 49-tap blur (about 100 flops), ~50 kflop per
-// keypoint, while the raw image reads hit L1/L2.  Design: one warp per
-// keypoint, lane k computes byte k (8 tests, 16 samples).  Simple and
-// right first; blurring each keypoint's 45x45 patch once into shared
-// memory is later work.
+// Design: two kernels, queued by one launcher (tpuslam_orb), one for each
+// half of the plain version.
+// - orb_blur_kernel (orb_blur): the whole image once, into a (B, H, W) u8
+//   scratch that stays in L2 (14 MB for a 30-frame chunk).  A block takes
+//   a TH x TW output tile: it stages the raw tile with its 3-px halo in
+//   shared memory as f32 (a warp per row; reflect-101 applied and each
+//   byte converted once), runs the vertical taps with each thread on
+//   VROWS rows of one column (14 loads for 8 sums), then the horizontal
+//   taps with each thread on HCOLS adjacent outputs of one row (10 loads
+//   for 4 sums) from a tile of vertical sums whose odd row stride puts a
+//   warp's 4 rows x 8 column groups on 32 distinct banks.  Bound by
+//   issue: 28 f32 operations per pixel and its shared-memory loads.
+// - orb_tests_kernel (descriptors_from_blurred): one warp per keypoint,
+//   lane k on byte k; a lane holds its 16 rotated (dx, dy) offsets in
+//   registers, loaded once per warp, and the warp walks keypoints
+//   grid-stride; 16 byte gathers of the blurred image per lane.  Bound by
+//   the gathers: the 32 lanes of a load fall on as many rows.  The table
+//   stays out of __constant__ memory, which would serialise the lanes'
+//   different entries.
+// Both are also exported alone (tpuslam_orb_blur, tpuslam_orb_tests), as
+// tool launchers that chip_smoke.py holds to the two plain halves.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -32,71 +48,207 @@
 
 namespace {
 
-constexpr int WARPS = 8;
+// blur: TH x TW outputs per block of BLUR_THREADS threads
+constexpr int TH = 32, TW = 128, BLUR_THREADS = 256;
+constexpr int SH = TH + 6, SW = TW + 6;   // raw tile with the 3-px halo
+constexpr int SCOLS = (SW + 31) / 32;     // staged columns per lane
+constexpr int VS = SW + 1;                // odd row stride of the sums
+constexpr int VROWS = 8;                  // vertical pass: rows per thread
+constexpr int HCOLS = 4;                  // horizontal: columns per thread
+constexpr int GROUPS = TW / HCOLS;        // column groups of a tile row
+static_assert(TH % VROWS == 0 && TH % 4 == 0 && GROUPS % 8 == 0 &&
+              VS % 2 == 1, "tile shape");
+// tests: warps per block and blocks per SM of the grid-stride loop
+constexpr int TEST_WARPS = 8, TEST_BLOCKS_PER_SM = 4;
 
-__device__ __forceinline__ int refl(int i, int n) {   // reflect-101, |i| <= 3 out
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
+// reflect-101 for |i| <= 3 outside [0, n); the clamp only guards staged
+// rows and columns that no output reads (a tile past the image's end)
+__device__ __forceinline__ int refl(int i, int n) {
+  i = i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
+  return min(max(i, 0), n - 1);
 }
 
-__device__ __forceinline__ int blurred_at(const uint8_t* im, int H, int W,
-                                          int y, int x, const float* k) {
-  if (y < 0 || y >= H || x < 0 || x >= W) return 0;
-  float out = 0.0f;
-  for (int j = 0; j < 7; ++j) {
-    const int xx = refl(x + j - 3, W);
-    float v = 0.0f;
-    for (int i = 0; i < 7; ++i)
-      v = v + k[i] * (float)im[(long)refl(y + i - 3, H) * W + xx];
-    out = out + k[j] * v;
-  }
-  float b = fminf(fmaxf(floorf(out + 0.5f), 0.0f), 255.0f);
-  return (int)b;
-}
-
-__global__ void __launch_bounds__(WARPS * 32)
-orb_kernel(const uint8_t* __restrict__ img, const float* __restrict__ kpts,
-           const bool* __restrict__ valid, const int* __restrict__ table,
-           const float* __restrict__ gk, uint8_t* __restrict__ desc,
-           int B, int H, int W, int K) {
-  const int lane = threadIdx.x & 31;
-  const long kp = blockIdx.x * (long)WARPS + (threadIdx.x >> 5);
-  if (kp >= (long)B * K) return;
-  const long frame = kp / K;
-  uint8_t* out = desc + kp * 32;
-  if (!valid[kp]) {
-    out[lane] = 0;
-    return;
-  }
+__global__ void __launch_bounds__(BLUR_THREADS)
+orb_blur_kernel(const uint8_t* __restrict__ img, const float* __restrict__ gk,
+                uint8_t* __restrict__ out, int H, int W, int tiles_x,
+                int tiles_y) {
+  __shared__ float raw[SH][SW];
+  __shared__ float vsum[TH][VS];
+  const int t = threadIdx.x;
+  const int tile = blockIdx.x % (tiles_x * tiles_y);
+  const long plane = (long)(blockIdx.x / (tiles_x * tiles_y)) * H * W;
+  const int x0 = (tile % tiles_x) * TW, y0 = (tile / tiles_x) * TH;
+  const uint8_t* im = img + plane;
   float k[7];
+#pragma unroll
   for (int i = 0; i < 7; ++i) k[i] = gk[i];
-  const uint8_t* im = img + frame * (long)H * W;
-  const int cx = min(max((int)rintf(kpts[kp * 2 + 0]), 0), W - 1);
-  const int cy = min(max((int)rintf(kpts[kp * 2 + 1]), 0), H - 1);
-  int acc = 0;
-  for (int bit = 0; bit < 8; ++bit) {
-    const int s = lane * 8 + bit;
-    const int* p0 = table + (2 * s) * 2;       // [dx, dy]
-    const int* p1 = table + (2 * s + 1) * 2;
-    int t0 = blurred_at(im, H, W, cy + p0[1], cx + p0[0], k);
-    int t1 = blurred_at(im, H, W, cy + p1[1], cx + p1[0], k);
-    acc |= (t0 < t1 ? 1 : 0) << bit;
+
+  // stage: a warp per row, the lane's reflected columns computed once
+  const int lane = t & 31;
+  int gx[SCOLS];
+#pragma unroll
+  for (int q = 0; q < SCOLS; ++q) gx[q] = refl(x0 + lane + 32 * q - 3, W);
+  for (int r = t >> 5; r < SH; r += BLUR_THREADS / 32) {
+    const uint8_t* src = im + (long)refl(y0 + r - 3, H) * W;
+#pragma unroll
+    for (int q = 0; q < SCOLS; ++q)
+      if (lane + 32 * q < SW) raw[r][lane + 32 * q] = (float)src[gx[q]];
   }
-  out[lane] = (uint8_t)acc;
+  __syncthreads();
+
+  // vertical taps over every staged column: v = k0*p0 + k1*p1 + ... + k6*p6
+  for (int i = t; i < SW * (TH / VROWS); i += BLUR_THREADS) {
+    const int g = i / SW, c = i - g * SW, r0 = g * VROWS;
+    float p[VROWS + 6];
+#pragma unroll
+    for (int j = 0; j < VROWS + 6; ++j) p[j] = raw[r0 + j][c];
+#pragma unroll
+    for (int r = 0; r < VROWS; ++r) {
+      float v = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 7; ++j) v = v + k[j] * p[r + j];
+      vsum[r0 + r][c] = v;
+    }
+  }
+  __syncthreads();
+
+  // horizontal taps: a warp takes 8 column groups x 4 rows
+  for (int i = t; i < TH * GROUPS; i += BLUR_THREADS) {
+    const int w = i >> 5;                  // lane = i & 31
+    const int c0 = ((w % (GROUPS / 8)) * 8 + (lane & 7)) * HCOLS;
+    const int r = (w / (GROUPS / 8)) * 4 + (lane >> 3);
+    const int y = y0 + r;
+    if (y >= H) continue;
+    float q[HCOLS + 6];
+#pragma unroll
+    for (int j = 0; j < HCOLS + 6; ++j) q[j] = vsum[r][c0 + j];
+    uint8_t* o = out + plane + (long)y * W + x0 + c0;
+#pragma unroll
+    for (int x = 0; x < HCOLS; ++x) {
+      if (x0 + c0 + x >= W) break;
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 7; ++j) s = s + k[j] * q[x + j];
+      o[x] = (uint8_t)fminf(fmaxf(floorf(s + 0.5f), 0.0f), 255.0f);
+    }
+  }
 }
+
+__device__ __forceinline__ int sample(const uint8_t* im, int H, int W, int x,
+                                      int y) {
+  return ((unsigned)x < (unsigned)W && (unsigned)y < (unsigned)H)
+             ? (int)im[(long)y * W + x] : 0;
+}
+
+__global__ void __launch_bounds__(TEST_WARPS * 32)
+orb_tests_kernel(const uint8_t* __restrict__ blurred,
+                 const float* __restrict__ kpts,
+                 const bool* __restrict__ valid,
+                 const int* __restrict__ table, uint8_t* __restrict__ desc,
+                 int H, int W, int K, long n) {
+  const int lane = threadIdx.x & 31;
+  // tests 8*lane .. 8*lane+7: table rows 16*lane .. 16*lane+15, [dx, dy]
+  int dx[16], dy[16];
+  const int4* row = reinterpret_cast<const int4*>(table) + lane * 8;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int4 v = row[i];
+    dx[2 * i] = v.x; dy[2 * i] = v.y;
+    dx[2 * i + 1] = v.z; dy[2 * i + 1] = v.w;
+  }
+  const long stride = (long)gridDim.x * TEST_WARPS;
+  for (long kp = blockIdx.x * (long)TEST_WARPS + (threadIdx.x >> 5); kp < n;
+       kp += stride) {
+    int acc = 0;
+    if (valid[kp]) {
+      const uint8_t* im = blurred + (kp / K) * (long)H * W;
+      const int cx = min(max((int)rintf(kpts[kp * 2 + 0]), 0), W - 1);
+      const int cy = min(max((int)rintf(kpts[kp * 2 + 1]), 0), H - 1);
+#pragma unroll
+      for (int bit = 0; bit < 8; ++bit) {
+        const int t0 = sample(im, H, W, cx + dx[2 * bit], cy + dy[2 * bit]);
+        const int t1 = sample(im, H, W, cx + dx[2 * bit + 1],
+                              cy + dy[2 * bit + 1]);
+        acc |= (t0 < t1 ? 1 : 0) << bit;
+      }
+    }
+    desc[kp * 32 + lane] = (uint8_t)acc;
+  }
+}
+
+cudaError_t launch_blur(const void* img, const void* gk, void* out, int B,
+                        int H, int W, cudaStream_t s) {
+  const int tx = (W + TW - 1) / TW, ty = (H + TH - 1) / TH;
+  orb_blur_kernel<<<(unsigned)((long)B * tx * ty), BLUR_THREADS, 0, s>>>(
+      (const uint8_t*)img, (const float*)gk, (uint8_t*)out, H, W, tx, ty);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tests(const void* blurred, const void* kpts,
+                         const void* valid, const void* table, void* desc,
+                         int B, int H, int W, int K, cudaStream_t s) {
+  const long n = (long)B * K;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long blocks = (n + TEST_WARPS - 1) / TEST_WARPS;
+  const long cap = (long)sms * TEST_BLOCKS_PER_SM;
+  orb_tests_kernel<<<(unsigned)(blocks < cap ? blocks : cap),
+                     TEST_WARPS * 32, 0, s>>>(
+      (const uint8_t*)blurred, (const float*)kpts, (const bool*)valid,
+      (const int*)table, (uint8_t*)desc, H, W, K, n);
+  return cudaGetLastError();
+}
+
+bool bad_image(int B, int H, int W) { return B < 1 || H < 4 || W < 4; }
 
 }  // namespace
 
+// K3: blur `img` into `scratch` (B, H, W) u8, then the tests at `kpts`.
 extern "C" int tpuslam_orb(const void* img, const void* kpts,
                            const void* valid, const void* table,
-                           const void* gk, void* desc, int B, int H, int W,
-                           int K, void* stream) {
-  if (B < 1 || H < 4 || W < 4 || K < 0) return -1;
+                           const void* gk, void* scratch, void* desc, int B,
+                           int H, int W, int K, void* stream) {
+  if (bad_image(B, H, W) || K < 0) return -1;
   if (K == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  long n = (long)B * K;
-  unsigned blocks = (unsigned)((n + WARPS - 1) / WARPS);
-  orb_kernel<<<blocks, WARPS * 32, 0, s>>>(
-      (const uint8_t*)img, (const float*)kpts, (const bool*)valid,
-      (const int*)table, (const float*)gk, (uint8_t*)desc, B, H, W, K);
-  return (int)cudaGetLastError();
+  cudaError_t e = launch_blur(img, gk, scratch, B, H, W, s);
+  if (e == cudaSuccess)
+    e = launch_tests(scratch, kpts, valid, table, desc, B, H, W, K, s);
+  return (int)e;
+}
+
+// K3's first half alone (tool launcher): the blurred image.
+extern "C" int tpuslam_orb_blur(const void* img, const void* gk, void* out,
+                                int B, int H, int W, void* stream) {
+  if (bad_image(B, H, W)) return -1;
+  return (int)launch_blur(img, gk, out, B, H, W, (cudaStream_t)stream);
+}
+
+// K3's second half alone (tool launcher): the tests on a blurred image.
+extern "C" int tpuslam_orb_tests(const void* blurred, const void* kpts,
+                                 const void* valid, const void* table,
+                                 void* desc, int B, int H, int W, int K,
+                                 void* stream) {
+  if (bad_image(B, H, W) || K < 0) return -1;
+  if (K == 0) return 0;
+  return (int)launch_tests(blurred, kpts, valid, table, desc, B, H, W, K,
+                           (cudaStream_t)stream);
+}
+
+// Registers, static shared memory and local memory per thread of the
+// blur kernel (out[0..2]) and of the tests kernel (out[3..5]).
+extern "C" int tpuslam_orb_attrs(int* out) {
+  cudaFuncAttributes a[2];
+  cudaError_t e = cudaFuncGetAttributes(&a[0], orb_blur_kernel);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a[1], orb_tests_kernel);
+  if (e != cudaSuccess) return (int)e;
+  for (int i = 0; i < 2; ++i) {
+    out[3 * i] = a[i].numRegs;
+    out[3 * i + 1] = (int)a[i].sharedSizeBytes;
+    out[3 * i + 2] = (int)a[i].localSizeBytes;
+  }
+  return 0;
 }

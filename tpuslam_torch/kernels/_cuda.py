@@ -10,7 +10,9 @@ reused.  A launcher is named like its kernel; SOURCES maps the launchers
 that live in another kernel's file to that file.
 
 KERNELS are the kernels of the main path; TOOLS are launchers that no path
-runs (the K1 phase harness of tpuslam_torch/tools/probe_bm_parts.py).
+runs: the K1 phase harness of tpuslam_torch/tools/probe_bm_parts.py, and
+K3's two halves alone (`orb_blur`, `orb_tests`), whose plain twins are the
+two halves of K3's (counted as K3's plain version when it runs them).
 
 Counters: every kernel wrapper adds one to LAUNCHES[name] where it launches
 its kernel; every plain PyTorch twin adds one to PLAIN_CALLS[name].  A run
@@ -37,9 +39,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # f32 operation order, so FMA contraction is off for them
 EXTRA_FLAGS = {"gftt": ["-fmad=false"], "orb": ["-fmad=false"]}
 KERNELS = ("stereo_bm", "gftt", "orb", "median", "lr_check", "lm_refine")
-TOOLS = ("stereo_bm_phase",)
+TOOLS = ("stereo_bm_phase", "orb_blur", "orb_tests")
 # launcher name -> csrc/<source>.cu, where the two differ
-SOURCES = {"stereo_bm_phase": "stereo_bm"}
+SOURCES = {"stereo_bm_phase": "stereo_bm", "orb_blur": "orb",
+           "orb_tests": "orb"}
 
 # C signature of each launcher: pointers and the stream are
 # void*, sizes and parameters int; every launcher returns cudaGetLastError()
@@ -47,12 +50,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "stereo_bm": ("tpuslam_stereo_bm", [_P] * 6 + [_I] * 8 + [_P]),
     "gftt": ("tpuslam_gftt", [_P] * 3 + [_I] * 3 + [_P]),
-    "orb": ("tpuslam_orb", [_P] * 6 + [_I] * 4 + [_P]),
+    "orb": ("tpuslam_orb", [_P] * 7 + [_I] * 4 + [_P]),
     "median": ("tpuslam_masked_median2", [_P] * 5 + [_I] * 2 + [_P]),
     "lr_check": ("tpuslam_lr_check", [_P] * 3 + [_I] * 6 + [_P]),
     "lm_refine": ("tpuslam_lm_refine", [_P] * 9 + [_I] * 2 + [_P]),
     "stereo_bm_phase": ("tpuslam_stereo_bm_phase", [_P] * 6 + [_I] * 9 +
                         [_P]),
+    "orb_blur": ("tpuslam_orb_blur", [_P] * 3 + [_I] * 3 + [_P]),
+    "orb_tests": ("tpuslam_orb_tests", [_P] * 5 + [_I] * 4 + [_P]),
 }
 
 LAUNCHES = {k: 0 for k in KERNELS + TOOLS}
@@ -147,6 +152,17 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
     LAUNCHES[name] += 1
+
+
+def attributes(src: str, sym: str, n: int, *ints) -> tuple:
+    """The n ints that csrc/<src>.cu's query `sym(*ints, int* out)` writes
+    (a kernel's registers, shared and local memory); raise on an error."""
+    out = (ctypes.c_int * n)()
+    rc = function(src, sym, [ctypes.c_int] * len(ints) + [ctypes.c_void_p])(
+        *ints, out)
+    if rc != 0:
+        raise RuntimeError(f"{sym}: cudaError {rc}")
+    return tuple(out)
 
 
 def expect(t: torch.Tensor, what: str, dtype: torch.dtype,

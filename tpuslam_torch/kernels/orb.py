@@ -8,8 +8,10 @@ orb.py:_orb_desc_planes_pallas.  GFTT keypoints carry angle -1, so the
 `bit_pattern_31` offsets are rotated once by -1 degree on the host; the
 descriptor of a keypoint is the 256 tests t0 < t1 of the 7x7 sigma-2
 blurred image at those offsets, packed LSB first into 32 bytes.  The plain
-version blurs the whole image and gathers the 512 samples per keypoint;
-kernel K3 computes only what the keypoints read.
+version blurs the whole image (`orb_blur`) and gathers the 512 samples per
+keypoint (`descriptors_from_blurred`); kernel K3's one launch queues a
+kernel for each of those halves, and each half is also a tool launcher of
+its own (`orb_blur_cuda`, `orb_tests_cuda`).
 """
 
 from __future__ import annotations
@@ -56,8 +58,7 @@ def orb_blur(img: torch.Tensor) -> torch.Tensor:
     """7x7 sigma-2 Gaussian blur of (..., H, W) uint8 with reflect-101
     borders, in tpuslam's f32 accumulation order (vertical taps, then
     horizontal), rounded half up and clipped to uint8."""
-    k = torch.tensor(gaussian_kernel_7_sigma2(), dtype=torch.float32,
-                     device=img.device)
+    k = _gauss_taps(img.device)
     h, w = img.shape[-2:]
     p = _reflect101_pad(img.float(), 3)
     v = 0.0
@@ -108,41 +109,100 @@ def descriptors_from_blurred(blurred: torch.Tensor, kpts_xy: torch.Tensor,
     return torch.where(valid[..., None], desc, 0)
 
 
-_offsets_dev: dict = {}
+_on_device: dict = {}
+
+
+def _cached(key, device, make) -> torch.Tensor:
+    """make()'s array as a tensor on `device`, copied there once per key
+    and device (no host-to-device copy per call)."""
+    k = (key, str(device))
+    if k not in _on_device:
+        _on_device[k] = torch.as_tensor(make(), device=device)
+    return _on_device[k]
 
 
 def _offset_table(angle_deg: float, device) -> torch.Tensor:
     """(512, 2) int32 [dx, dy] rotated pattern on `device` (cached)."""
-    key = (angle_deg, str(device))
-    if key not in _offsets_dev:
+    def make():
         dxs, dys, _ = _const_angle_offsets(angle_deg)
-        _offsets_dev[key] = torch.as_tensor(
-            np.stack([dxs, dys], axis=1).astype(np.int32), device=device)
-    return _offsets_dev[key]
+        return np.stack([dxs, dys], axis=1).astype(np.int32)
+    return _cached(("offsets", angle_deg), device, make)
+
+
+def _gauss_taps(device) -> torch.Tensor:
+    """(7,) f32 taps of gaussian_kernel_7_sigma2 on `device` (cached)."""
+    return _cached("taps", device,
+                   lambda: gaussian_kernel_7_sigma2().astype(np.float32))
+
+
+def _check_image(image: torch.Tensor, what: str = "image"):
+    _cuda.expect(image, what, torch.uint8, 3)
+    if image.shape[1] < 4 or image.shape[2] < 4:
+        raise ValueError(f"{what} smaller than 4x4")
+    return image.shape
+
+
+def _check_keypoints(kpts_xy: torch.Tensor, valid: torch.Tensor,
+                     B: int) -> int:
+    _cuda.expect(kpts_xy, "kpts_xy", torch.float32, 3)
+    _cuda.expect(valid, "valid", torch.bool, 2)
+    K = kpts_xy.shape[1]
+    if kpts_xy.shape != (B, K, 2) or valid.shape != (B, K):
+        raise ValueError(f"kpts_xy {tuple(kpts_xy.shape)} / valid "
+                         f"{tuple(valid.shape)} do not match {B} frames")
+    return K
 
 
 def orb_descriptors_cuda(image: torch.Tensor, kpts_xy: torch.Tensor,
                          valid: torch.Tensor,
                          angle_deg: float = -1.0) -> torch.Tensor:
-    """Kernel K3 (csrc/orb.cu): same contract as orb_descriptors_plain."""
-    _cuda.expect(image, "image", torch.uint8, 3)
-    _cuda.expect(kpts_xy, "kpts_xy", torch.float32, 3)
-    _cuda.expect(valid, "valid", torch.bool, 2)
-    B, H, W = image.shape
-    K = kpts_xy.shape[1]
-    if kpts_xy.shape != (B, K, 2) or valid.shape != (B, K):
-        raise ValueError(f"kpts_xy {tuple(kpts_xy.shape)} / valid "
-                         f"{tuple(valid.shape)} do not match {B} frames")
-    if H < 4 or W < 4:
-        raise ValueError("image smaller than 4x4")
-    table = _offset_table(angle_deg, image.device)
-    gk = torch.tensor(gaussian_kernel_7_sigma2(), dtype=torch.float32,
-                      device=image.device)
-    desc = torch.empty((B, K, 32), dtype=torch.uint8, device=image.device)
-    with torch.cuda.device(image.device):
-        _cuda.launch("orb", image, kpts_xy, valid, table, gk, desc, B, H, W,
-                     K)
+    """Kernel K3 (csrc/orb.cu): same contract as orb_descriptors_plain.
+    One launch queues the blur into a scratch image, then the tests."""
+    B, H, W = _check_image(image)
+    K = _check_keypoints(kpts_xy, valid, B)
+    dev = image.device
+    scratch = torch.empty_like(image)
+    desc = torch.empty((B, K, 32), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.launch("orb", image, kpts_xy, valid,
+                     _offset_table(angle_deg, dev), _gauss_taps(dev),
+                     scratch, desc, B, H, W, K)
     return desc
+
+
+def orb_blur_cuda(image: torch.Tensor) -> torch.Tensor:
+    """K3's blur alone (the `orb_blur` tool launcher): same contract as
+    orb_blur on a (B, H, W) uint8 image.  No path runs it."""
+    B, H, W = _check_image(image)
+    out = torch.empty_like(image)
+    with torch.cuda.device(image.device):
+        _cuda.launch("orb_blur", image, _gauss_taps(image.device), out, B, H,
+                     W)
+    return out
+
+
+def orb_tests_cuda(blurred: torch.Tensor, kpts_xy: torch.Tensor,
+                   valid: torch.Tensor,
+                   angle_deg: float = -1.0) -> torch.Tensor:
+    """K3's tests alone (the `orb_tests` tool launcher): same contract as
+    descriptors_from_blurred.  No path runs it."""
+    B, H, W = _check_image(blurred, "blurred")
+    K = _check_keypoints(kpts_xy, valid, B)
+    dev = blurred.device
+    desc = torch.empty((B, K, 32), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.launch("orb_tests", blurred, kpts_xy, valid,
+                     _offset_table(angle_deg, dev), desc, B, H, W, K)
+    return desc
+
+
+def orb_kernel_attrs() -> dict:
+    """Registers, static shared bytes and local bytes per thread of K3's
+    two kernels on the current card."""
+    out = _cuda.attributes("orb", "tpuslam_orb_attrs", 6)
+    return {name: dict(registers=out[3 * i], shared_bytes=out[3 * i + 1],
+                       local_bytes=out[3 * i + 2])
+            for i, name in enumerate(("blur", "tests"))}
 
 
 def orb_descriptors_const_angle(image: torch.Tensor, kpts_xy: torch.Tensor,
