@@ -272,6 +272,10 @@ def kernel_phase(lefts, rights, cfg):
            lambda: F.masked_median2_cuda(*one),
            lambda: F.masked_median2_plain(*one), km,
            (pm[0], pm[1], pm[2].int()), 9 * n, 8 * n)
+    ma = F.median_kernel_attrs(n)
+    log(f"# median kernel (N = {n}): {ma['registers']} registers, "
+        f"{ma['shared_bytes']} B shared memory, {ma['local_bytes']} B local "
+        f"memory per thread, {ma['keys_per_thread']} keys per thread")
     return rows
 
 

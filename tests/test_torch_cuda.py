@@ -189,10 +189,14 @@ def test_orb_kernel(pair, case):
         assert k.any()
 
 
-def test_median_kernel(pair):
+@pytest.mark.parametrize("n", [1, 31, 513, 1536, 1537, 5000])
+def test_median_kernel(pair, n):
+    """K4 equals its plain twin exactly with ties, +inf, count 0, count 1
+    and a sparse row, at N below one key per thread, past each number of
+    register-held keys per thread and past the register-held keys (N >
+    4096, the keys re-read from memory)."""
     from tpuslam_torch.vo import fused as F
     rng = np.random.default_rng(7)
-    n = 1536
     a = np.abs(rng.normal(0, 10, (6, n))).astype(np.float32)
     b = np.abs(rng.normal(0, 2, (6, n))).astype(np.float32)
     a[1] = np.round(a[1])                      # ties
@@ -200,7 +204,7 @@ def test_median_kernel(pair):
     m = rng.uniform(size=(6, n)) < 0.5
     m[3] = False                               # count 0
     m[4] = False
-    m[4, 77] = True                            # count 1
+    m[4, n // 3] = True                        # count 1
     m[5] = rng.uniform(size=n) < 0.002
     a, b, m = (torch.as_tensor(v).cuda() for v in (a, b, m))
     k = F.masked_median2_cuda(a, b, m)

@@ -176,6 +176,14 @@ def masked_median2_cuda(a, b, mask):
     return meds[:, 0], meds[:, 1], cnt
 
 
+def median_kernel_attrs(n: int) -> dict:
+    """Registers, static shared bytes, local bytes per thread and keys per
+    thread (0: re-read) of the K4 kernel that rows of n keys take."""
+    out = _cuda.attributes("median", "tpuslam_masked_median2_attrs", 4, n)
+    return dict(zip(("registers", "shared_bytes", "local_bytes",
+                     "keys_per_thread"), out))
+
+
 def masked_median2(a, b, mask):
     fn = masked_median2_cuda if a.is_cuda else masked_median2_plain
     return fn(a, b, mask)
