@@ -22,17 +22,23 @@
 // 16, valid while N < 65536), summed across its warp by one
 // __reduce_add_sync, and across the block through a double-buffered
 // array of warp partials: one barrier per step, 31 steps for both
-// medians.  Rows longer than KPT_MAX * NT keys (KPT = 0) re-read their
-// keys from memory in each step and sum the two counts apart.
+// medians.  Rows longer than REG_KEYS keys (KPT = 0) re-read their keys
+// from memory in each step and sum the two counts apart.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 512, NW = NT / 32;
-constexpr int KPT_MAX = 8;                 // register keys per thread
+// threads per row (chosen on the card with tools/shape_sweep.py, which
+// builds other counts with -DMED_THREADS)
+#ifndef MED_THREADS
+#define MED_THREADS 256
+#endif
+constexpr int NT = MED_THREADS, NW = NT / 32;
+constexpr int REG_KEYS = 4096;             // rows held in registers
 constexpr int NO_KEY = 0x7fffffff;         // above every mid
+static_assert(NT % 32 == 0 && NW <= 32 && REG_KEYS % NT == 0, "block");
 
 // The block's sums of v (and of v2 when TWO) through part[0..2*NW): each
 // warp's sum by one reduction, then every warp sums the NW partials.
@@ -75,9 +81,13 @@ median2_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < KPT; ++j) {
       const int i = threadIdx.x + j * NT;
-      const bool in = i < N, on = in && m[i];
-      ka[j] = on ? __float_as_int(x[i]) : (in ? big : NO_KEY);
-      kb[j] = on ? __float_as_int(y[i]) : (in ? big : NO_KEY);
+      const bool in = i < N;
+      // the three loads independent, so one memory round trip
+      const bool on = in && m[i];
+      const int xa = in ? __float_as_int(x[i]) : NO_KEY;
+      const int xb = in ? __float_as_int(y[i]) : NO_KEY;
+      ka[j] = on ? xa : (in ? big : NO_KEY);
+      kb[j] = on ? xb : (in ? big : NO_KEY);
       c += on ? 1u : 0u;
     }
   } else {
@@ -122,17 +132,27 @@ median2_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// Calls f with the kernel for N: the fewest register keys per thread
-// that hold the row, or KPT = 0 (keys re-read) past KPT_MAX * NT.
-template <typename Fn>
+// The register keys per thread of rows of N keys: the first of KPTS
+// that holds the row, or 0 (keys re-read) past REG_KEYS.
+constexpr int KPTS[] = {1, 2, 3, 4, 6, 8, 12, 16, 24, 32};
+
+int keys_per_thread(int N) {
+  for (int kpt : KPTS)
+    if (kpt * NT >= N && kpt * NT <= REG_KEYS) return kpt;
+  return 0;
+}
+
+// Calls f with the kernel for rows of N keys.
+template <int I = 0, typename Fn>
 cudaError_t on_kernel(int N, Fn f) {
-  const int need = (N + NT - 1) / NT;
-  if (need <= 1) return f(median2_kernel<1>);
-  if (need <= 2) return f(median2_kernel<2>);
-  if (need <= 3) return f(median2_kernel<3>);
-  if (need <= 4) return f(median2_kernel<4>);
-  if (need <= KPT_MAX) return f(median2_kernel<KPT_MAX>);
-  return f(median2_kernel<0>);
+  if constexpr (I < (int)(sizeof(KPTS) / sizeof(KPTS[0]))) {
+    if constexpr (KPTS[I] * NT <= REG_KEYS) {
+      if (keys_per_thread(N) == KPTS[I]) return f(median2_kernel<KPTS[I]>);
+    }
+    return on_kernel<I + 1>(N, f);
+  } else {
+    return f(median2_kernel<0>);
+  }
 }
 
 }  // namespace
@@ -154,8 +174,7 @@ extern "C" int tpuslam_masked_median2(const void* a, const void* b,
 // kernel that rows of N keys take, and its keys per thread (out[0..3]).
 extern "C" int tpuslam_masked_median2_attrs(int N, int* out) {
   if (N < 1) return -1;
-  const int need = (N + NT - 1) / NT;
-  out[3] = need <= 4 ? need : (need <= KPT_MAX ? KPT_MAX : 0);
+  out[3] = keys_per_thread(N);
   return (int)on_kernel(N, [&](auto kernel) {
     cudaFuncAttributes a;
     cudaError_t e = cudaFuncGetAttributes(&a, kernel);
