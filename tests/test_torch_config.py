@@ -257,6 +257,17 @@ def test_orb_half_wrapper_refuses_cpu_tensors(name):
     assert sum(_cuda.LAUNCHES.values()) == 0
 
 
+@pytest.mark.parametrize("argv, match", [([], "no CUDA device"),
+                                         (["gftt:32"], "unknown shape")])
+def test_shape_sweep_refuses(monkeypatch, argv, match):
+    """The K3-blur and K4 shape sweep refuses an unknown kernel and exits
+    with an error where there is no CUDA device, before any build."""
+    from tpuslam_torch.tools import shape_sweep
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match=match):
+        shape_sweep.main(argv)
+
+
 def test_kernel_table_names_every_kernel():
     """Every launcher has a signature, counters and a source; the phase
     harness is a tool in K1's file and K3's two halves tools in K3's, not

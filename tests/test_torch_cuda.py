@@ -141,6 +141,9 @@ def _orb_case(pair, case):
     if case == "crop":                  # not a whole number of blur tiles
         img = img[:, :101, :333].contiguous()
         return (img,) + _random_keypoints(B, 300, 101, 333, 1)
+    if case == "odd_width":             # word-loaded tiles at every
+        img = img[:, :, :637].contiguous()  # row alignment
+        return (img,) + _random_keypoints(B, 300, H, 637, 6)
     if case == "four_rows":             # reflect-101 across the image
         img = img[:, 100:104].contiguous()
         return (img,) + _random_keypoints(B, 200, 4, W, 2)
@@ -160,15 +163,18 @@ def _orb_case(pair, case):
     raise ValueError(case)
 
 
-@pytest.mark.parametrize("case", ["fixture", "crop", "four_rows", "corners",
-                                  "all_invalid", "k0", "odd_count"])
+@pytest.mark.parametrize("case", ["fixture", "crop", "odd_width",
+                                  "four_rows", "corners", "all_invalid",
+                                  "k0", "odd_count"])
 def test_orb_kernel(pair, case):
     """K3 equals its plain twin bit for bit, and each of its halves as a
     tool launcher equals its plain half: on the fixture's keypoints, on a
-    crop that is not a whole number of blur tiles, on 4 rows (reflect-101
-    reaches across the image), with keypoints at the corners (samples
-    outside the image read 0), with every row invalid, with no keypoints
-    and with a keypoint count that fills no whole block."""
+    crop that is not a whole number of blur tiles, on a width whose rows
+    start at every word alignment (the blur's word-loaded staging), on 4
+    rows (reflect-101 reaches across the image), with keypoints at the
+    corners (samples outside the image read 0), with every row invalid,
+    with no keypoints and with a keypoint count that fills no whole
+    block."""
     from tpuslam_torch.kernels import _cuda
     from tpuslam_torch.kernels import orb as T
     img, kp, valid = _orb_case(pair, case)
@@ -185,7 +191,7 @@ def test_orb_kernel(pair, case):
     assert not k[~valid].any()
     assert (_cuda.LAUNCHES["orb"], _cuda.LAUNCHES["orb_blur"],
             _cuda.LAUNCHES["orb_tests"]) == (1, 1, 1)
-    if case in ("fixture", "crop", "corners"):
+    if case in ("fixture", "crop", "odd_width", "corners"):
         assert k.any()
 
 

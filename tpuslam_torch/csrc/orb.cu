@@ -21,26 +21,31 @@
 // run as sums: each sum is the plain version's, term by term.
 //
 // Design: two kernels, queued by one launcher (tpuslam_orb), one for each
-// half of the plain version.
-// - orb_blur_kernel (orb_blur): the whole image once, into a (B, H, W) u8
-//   scratch that stays in L2 (14 MB for a 30-frame chunk).  A block takes
-//   a TH x TW output tile: it stages the raw tile with its 3-px halo in
-//   shared memory as f32 (a warp per row; reflect-101 applied and each
-//   byte converted once), runs the vertical taps with each thread on
-//   VROWS rows of one column (14 loads for 8 sums), then the horizontal
-//   taps with each thread on HCOLS adjacent outputs of one row (10 loads
-//   for 4 sums) from a tile of vertical sums whose odd row stride puts a
-//   warp's 4 rows x 8 column groups on 32 distinct banks.  Bound by
-//   issue: 28 f32 operations per pixel and its shared-memory loads.
-// - orb_tests_kernel (descriptors_from_blurred): one warp per keypoint,
-//   lane k on byte k; a lane holds its 16 rotated (dx, dy) offsets in
-//   registers, loaded once per warp, and the warp walks keypoints
-//   grid-stride; 16 byte gathers of the blurred image per lane.  Bound by
-//   the gathers: the 32 lanes of a load fall on as many rows.  The table
-//   stays out of __constant__ memory, which would serialise the lanes'
-//   different entries.
-// Both are also exported alone (tpuslam_orb_blur, tpuslam_orb_tests), as
-// tool launchers that chip_smoke.py holds to the two plain halves.
+// half of the plain version; each is also exported alone
+// (tpuslam_orb_blur, tpuslam_orb_tests), as tool launchers that
+// chip_smoke.py holds to the two plain halves and times apart.
+// - orb_blur_kernel (orb_blur) blurs the whole image once into a
+//   (B, H, W) u8 scratch that stays in L2 (14 MB for a 30-frame chunk).
+//   A block takes a TH x TW output tile (a 3-D grid: columns, rows,
+//   frames).  It stages the raw tile and its 3-px halo in shared memory as
+//   f32, a warp per row, each byte converted once: inside the image a
+//   lane loads one aligned word and funnels it with its neighbour's into
+//   a 16-byte store; edge tiles load byte by byte through reflect-101.
+//   The vertical taps run with each thread on VROWS rows of one column
+//   (14 loads for 8 sums), the horizontal taps with each thread on HCOLS
+//   adjacent outputs of one row (10 loads for 4 sums) from a tile of
+//   vertical sums whose odd row stride puts a warp's 4 rows x 8 column
+//   groups on 32 distinct banks; a warp's 4 byte stores then cover 4
+//   rows x 32 bytes.  Bound by instruction issue: 28 f32 operations per
+//   pixel, which the no-FMA order cannot share, and their loads.
+// - orb_tests_kernel (descriptors_from_blurred) runs the 256 tests: one
+//   warp per keypoint, lane k on byte k.  A lane holds its 16 rotated
+//   (dx, dy) offsets in registers, loaded once per warp, and the warp
+//   walks keypoints grid-stride; 16 byte gathers of the L2-resident
+//   blurred image per lane, 0 outside the image.  Bound by the gathers:
+//   the 32 lanes of a load fall on up to 26 rows.  The table stays out of
+//   __constant__ memory, which would serialise the lanes' different
+//   entries.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,16 +53,32 @@
 
 namespace {
 
-// blur: TH x TW outputs per block of BLUR_THREADS threads
-constexpr int TH = 32, TW = 128, BLUR_THREADS = 256;
+// blur: TH x TW outputs per block of BLUR_THREADS threads (chosen on the
+// card with tools/shape_sweep.py, which builds other shapes with -DORB_TH,
+// -DORB_TW and -DORB_THREADS)
+#ifndef ORB_TH
+#define ORB_TH 16
+#endif
+#ifndef ORB_TW
+#define ORB_TW 256
+#endif
+#ifndef ORB_THREADS
+#define ORB_THREADS 256
+#endif
+constexpr int TH = ORB_TH, TW = ORB_TW, BLUR_THREADS = ORB_THREADS;
 constexpr int SH = TH + 6, SW = TW + 6;   // raw tile with the 3-px halo
+constexpr int RS = (SW + 3) / 4 * 4;      // its row stride, whole float4s
+constexpr int BW = BLUR_THREADS / 32;     // warps of a blur block
 constexpr int SCOLS = (SW + 31) / 32;     // staged columns per lane
+constexpr int NWORDS = (SW + 6) / 4;      // words over a row's SW bytes
+constexpr int WSETS = ((SW + 3) / 4 + 31) / 32;  // float4s per lane
 constexpr int VS = SW + 1;                // odd row stride of the sums
 constexpr int VROWS = 8;                  // vertical pass: rows per thread
 constexpr int HCOLS = 4;                  // horizontal: columns per thread
 constexpr int GROUPS = TW / HCOLS;        // column groups of a tile row
-static_assert(TH % VROWS == 0 && TH % 4 == 0 && GROUPS % 8 == 0 &&
-              VS % 2 == 1, "tile shape");
+constexpr int GPW = 32 / HCOLS;           // column groups per warp
+static_assert(TH % VROWS == 0 && TH % HCOLS == 0 && GROUPS % GPW == 0 &&
+              VS % 2 == 1 && BLUR_THREADS % 32 == 0, "tile shape");
 // tests: warps per block and blocks per SM of the grid-stride loop
 constexpr int TEST_WARPS = 8, TEST_BLOCKS_PER_SM = 4;
 
@@ -68,31 +89,84 @@ __device__ __forceinline__ int refl(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
+// The byte <-> f32 conversions run on the FP32 adders instead of the
+// slower conversion instructions (I2F, F2I, FRND).  A byte b sets the
+// low mantissa bits of 2^23, and subtracting 2^23 leaves b exactly.
+__device__ __forceinline__ float byte_to_float(uint8_t b) {
+  return __int_as_float(0x4B000000 | b) - 8388608.0f;
+}
+
+// byte i of v the same way: one byte permute builds 2^23 + byte
+__device__ __forceinline__ float bytes_to_float(uint32_t v, int i) {
+  return __int_as_float(__byte_perm(v, 0x4B000000u, i | 0x7440)) -
+         8388608.0f;
+}
+
+// min(floor(s + 0.5), 255) of a blur sum s >= 0 (positive taps on bytes),
+// as the plain version's clamp(floor(s + 0.5), 0, 255): the sum y = s +
+// 0.5 (rounded to nearest, as there) lies in [0, 2^23), where y + 2^23
+// rounded down is 2^23 + floor(y) exactly, an integer in the mantissa.
+__device__ __forceinline__ uint8_t round_to_byte(float s) {
+  const float t = __fadd_rd(s + 0.5f, 8388608.0f);
+  return (uint8_t)min(__float_as_int(t) - 0x4B000000, 255);
+}
+
 __global__ void __launch_bounds__(BLUR_THREADS)
 orb_blur_kernel(const uint8_t* __restrict__ img, const float* __restrict__ gk,
-                uint8_t* __restrict__ out, int H, int W, int tiles_x,
-                int tiles_y) {
-  __shared__ float raw[SH][SW];
+                uint8_t* __restrict__ out, int H, int W) {
+  __shared__ __align__(16) float raw[SH][RS];
   __shared__ float vsum[TH][VS];
   const int t = threadIdx.x;
-  const int tile = blockIdx.x % (tiles_x * tiles_y);
-  const long plane = (long)(blockIdx.x / (tiles_x * tiles_y)) * H * W;
-  const int x0 = (tile % tiles_x) * TW, y0 = (tile / tiles_x) * TH;
+  const long plane = (long)blockIdx.z * H * W;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
   const uint8_t* im = img + plane;
   float k[7];
 #pragma unroll
   for (int i = 0; i < 7; ++i) k[i] = gk[i];
 
-  // stage: a warp per row, the lane's reflected columns computed once
+  // stage the raw tile as f32, a warp per row.  Inside the image's
+  // columns (no reflection, every word in the row) a lane loads the
+  // aligned word j of the row's window and takes word j + 1 from its
+  // neighbour; the window's misalignment picks 4 staged bytes out of
+  // the pair, and one 16-byte store writes them.  Tiles at the left and
+  // right edges load byte by byte with the reflected columns.
   const int lane = t & 31;
-  int gx[SCOLS];
+  if (x0 >= 8 && x0 + 4 * NWORDS <= W) {
+    for (int r = t >> 5; r < SH; r += BW) {
+      const uint8_t* a = im + (long)refl(y0 + r - 3, H) * W + x0 - 3;
+      const int mis = (int)((uintptr_t)a & 3);
+      const uint32_t* wrd = (const uint32_t*)(a - mis);
+      const unsigned sel = (unsigned)mis * 0x1111u + 0x3210u;
+      uint32_t w[WSETS + 1];
 #pragma unroll
-  for (int q = 0; q < SCOLS; ++q) gx[q] = refl(x0 + lane + 32 * q - 3, W);
-  for (int r = t >> 5; r < SH; r += BLUR_THREADS / 32) {
-    const uint8_t* src = im + (long)refl(y0 + r - 3, H) * W;
+      for (int u = 0; u <= WSETS; ++u)
+        w[u] = lane + 32 * u < NWORDS ? wrd[lane + 32 * u] : 0u;
 #pragma unroll
-    for (int q = 0; q < SCOLS; ++q)
-      if (lane + 32 * q < SW) raw[r][lane + 32 * q] = (float)src[gx[q]];
+      for (int u = 0; u < WSETS; ++u) {
+        // word lane + 32u + 1: the next lane's, or the next set's lane 0
+        const uint32_t nxt = __shfl_sync(0xffffffffu, lane == 0 ? w[u + 1]
+                                                                : w[u],
+                                         (lane + 1) & 31);
+        const int c = 4 * (lane + 32 * u);
+        if (c < SW) {
+          const uint32_t v = __byte_perm(w[u], nxt, sel);
+          *reinterpret_cast<float4*>(&raw[r][c]) = make_float4(
+              bytes_to_float(v, 0), bytes_to_float(v, 1),
+              bytes_to_float(v, 2), bytes_to_float(v, 3));
+        }
+      }
+    }
+  } else {
+    int gx[SCOLS];
+#pragma unroll
+    for (int q = 0; q < SCOLS; ++q) gx[q] = refl(x0 + lane + 32 * q - 3, W);
+    for (int r = t >> 5; r < SH; r += BW) {
+      const uint8_t* src = im + (long)refl(y0 + r - 3, H) * W;
+#pragma unroll
+      for (int q = 0; q < SCOLS; ++q)
+        if (lane + 32 * q < SW)
+          raw[r][lane + 32 * q] = byte_to_float(src[gx[q]]);
+    }
   }
   __syncthreads();
 
@@ -112,24 +186,24 @@ orb_blur_kernel(const uint8_t* __restrict__ img, const float* __restrict__ gk,
   }
   __syncthreads();
 
-  // horizontal taps: a warp takes 8 column groups x 4 rows
+  // horizontal taps: a warp takes GPW column groups x HCOLS rows
   for (int i = t; i < TH * GROUPS; i += BLUR_THREADS) {
     const int w = i >> 5;                  // lane = i & 31
-    const int c0 = ((w % (GROUPS / 8)) * 8 + (lane & 7)) * HCOLS;
-    const int r = (w / (GROUPS / 8)) * 4 + (lane >> 3);
+    const int c0 = ((w % (GROUPS / GPW)) * GPW + lane % GPW) * HCOLS;
+    const int r = (w / (GROUPS / GPW)) * HCOLS + lane / GPW;
     const int y = y0 + r;
     if (y >= H) continue;
     float q[HCOLS + 6];
 #pragma unroll
     for (int j = 0; j < HCOLS + 6; ++j) q[j] = vsum[r][c0 + j];
     uint8_t* o = out + plane + (long)y * W + x0 + c0;
+    const int n = W - x0 - c0;             // outputs left in the row
 #pragma unroll
     for (int x = 0; x < HCOLS; ++x) {
-      if (x0 + c0 + x >= W) break;
       float s = 0.0f;
 #pragma unroll
       for (int j = 0; j < 7; ++j) s = s + k[j] * q[x + j];
-      o[x] = (uint8_t)fminf(fmaxf(floorf(s + 0.5f), 0.0f), 255.0f);
+      if (n >= HCOLS || x < n) o[x] = round_to_byte(s);
     }
   }
 }
@@ -178,10 +252,17 @@ orb_tests_kernel(const uint8_t* __restrict__ blurred,
 
 cudaError_t launch_blur(const void* img, const void* gk, void* out, int B,
                         int H, int W, cudaStream_t s) {
-  const int tx = (W + TW - 1) / TW, ty = (H + TH - 1) / TH;
-  orb_blur_kernel<<<(unsigned)((long)B * tx * ty), BLUR_THREADS, 0, s>>>(
-      (const uint8_t*)img, (const float*)gk, (uint8_t*)out, H, W, tx, ty);
-  return cudaGetLastError();
+  const long plane = (long)H * W;
+  for (int b0 = 0; b0 < B; b0 += 65535) {       // the grid's z limit
+    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH,
+                    B - b0 < 65535 ? B - b0 : 65535);
+    orb_blur_kernel<<<grid, BLUR_THREADS, 0, s>>>(
+        (const uint8_t*)img + b0 * plane, (const float*)gk,
+        (uint8_t*)out + b0 * plane, H, W);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 cudaError_t launch_tests(const void* blurred, const void* kpts,
