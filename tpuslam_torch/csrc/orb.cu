@@ -57,13 +57,13 @@ namespace {
 // card with tools/shape_sweep.py, which builds other shapes with -DORB_TH,
 // -DORB_TW and -DORB_THREADS)
 #ifndef ORB_TH
-#define ORB_TH 16
+#define ORB_TH 8
 #endif
 #ifndef ORB_TW
 #define ORB_TW 256
 #endif
 #ifndef ORB_THREADS
-#define ORB_THREADS 256
+#define ORB_THREADS 128
 #endif
 constexpr int TH = ORB_TH, TW = ORB_TW, BLUR_THREADS = ORB_THREADS;
 constexpr int SH = TH + 6, SW = TW + 6;   // raw tile with the 3-px halo

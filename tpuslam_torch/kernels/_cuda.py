@@ -156,7 +156,8 @@ def launch(name: str, *args) -> None:
 
 def attributes(src: str, sym: str, n: int, *ints) -> tuple:
     """The n ints that csrc/<src>.cu's query `sym(*ints, int* out)` writes
-    (a kernel's registers, shared and local memory); raise on an error."""
+    (attributes of a kernel: registers, shared memory, ...); raise on an
+    error."""
     out = (ctypes.c_int * n)()
     rc = function(src, sym, [ctypes.c_int] * len(ints) + [ctypes.c_void_p])(
         *ints, out)

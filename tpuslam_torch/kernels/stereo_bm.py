@@ -19,7 +19,6 @@ Not ported yet: the speckle filter (ROADMAP A4).
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -409,10 +408,5 @@ def stereo_bm_phase_occupancy(phase: str):
     _check_phase(phase)
     if phase == "prefilter":
         raise ValueError("the prefilter phase runs no cut of K1's kernel")
-    out = (ctypes.c_int * 3)()
-    rc = _cuda.function("stereo_bm", "tpuslam_stereo_bm_phase_occupancy",
-                        [ctypes.c_int, ctypes.c_void_p])(
-        PHASES.index(phase), out)
-    if rc != 0:
-        raise RuntimeError(f"occupancy of K1 phase {phase}: cudaError {rc}")
-    return tuple(out)
+    return _cuda.attributes("stereo_bm", "tpuslam_stereo_bm_phase_occupancy",
+                            3, PHASES.index(phase))

@@ -35,7 +35,7 @@ from ..vo import fused as F
 from .timing import floor_ms, times_ms
 
 # blur shapes whose two f32 tiles fit in 48 KB of static shared memory
-SHAPES = ("orb_blur:16x256x256", "orb_blur:8x256x128", "orb_blur:16x256x128",
+SHAPES = ("orb_blur:8x256x128", "orb_blur:16x256x256", "orb_blur:16x256x128",
           "orb_blur:8x256x256", "orb_blur:32x128x256", "orb_blur:16x128x128",
           "orb_blur:16x192x256", "orb_blur:32x64x256", "orb_blur:64x64x256",
           "median:256", "median:128", "median:512", "median:1024")
