@@ -199,7 +199,8 @@ def test_default_config_takes_every_plain_version(default_runs):
     medians and the LM refine once per frame (one refine round)."""
     plain = default_runs[2]
     assert plain == dict(stereo_bm=2, gftt=2, orb=2, median=12,
-                         lr_check=2, lm_refine=12, stereo_bm_phase=0)
+                         lr_check=2, lm_refine=12, stereo_bm_phase=0,
+                         orb_blur=0, orb_tests=0)
 
 
 MEDIAN_CASES = [(1536, 0.5, False), (1536, 0.0, False), (100, 0.9, False),
