@@ -17,8 +17,8 @@ tpuslam.  Phases, each of which raises on failure:
    card's launch floor, an empty spin timed the same way, once): K1
    StereoBM, K2 GFTT response+dilation, K3 ORB, K4 covariance medians and
    K5 LR check exactly, and K3's two halves alone (the `orb_blur` and
-   `orb_tests` tool launchers) each against its plain half; print K3's and
-   K4's registers and shared memory;
+   `orb_tests` tool launchers) each against its plain half; print K2's,
+   K3's, K4's and K5's registers, shared and local memory;
 4. K1 phases: the phase harness (tpuslam_torch/tools/probe_bm_parts.py)
    on the same chunk: K1 cut after each of its seven phases, each cut
    equal to its plain twin (the full one also to K1), each timed;
@@ -186,6 +186,11 @@ def kernel_phase(lefts, rights, cfg):
            lambda: BM.lr_check_plain(*pb, cfg.bm), (kl,), (pl,),
            8 * px, 20 * px)
     log(f"# lr_check: {int((kl != kb[0]).sum())} pixels invalidated")
+    la = BM.lr_check_kernel_attrs(W)
+    log(f"# lr_check kernel (W = {W}): {la['registers']} registers, "
+        f"{la['shared_bytes']} B shared memory, {la['local_bytes']} B local "
+        f"memory per thread, {la['rows']} rows (a warp each) per block, "
+        f"{la['columns_per_lane']} columns per lane")
 
     # K2: response (compared bit for bit) and dilation.  Bound: image in
     # (1 B), response and dilation out (8 B) per pixel; ~40 operations per
@@ -208,6 +213,11 @@ def kernel_phase(lefts, rights, cfg):
     m_kern = (ke > thr[:, None, None]) & (ke == kd)
     if not torch.equal(m_plain, m_kern):
         raise AssertionError("gftt: raw-dilation mask != thresholded mask")
+    ga = G.gftt_kernel_attrs()
+    log(f"# gftt kernel: {ga['registers']} registers, {ga['shared_bytes']} B "
+        f"shared memory, {ga['local_bytes']} B local memory per thread, "
+        f"strips of {ga['strip_rows']}x{ga['strip_cols']} outputs, "
+        f"{ga['warps']} per block")
 
     # K3: descriptors at the plain path's keypoints (computed on the host).
     # Bound: the image in once (1 B per pixel), keypoints in (8 B) and

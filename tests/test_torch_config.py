@@ -257,11 +257,15 @@ def test_orb_half_wrapper_refuses_cpu_tensors(name):
     assert sum(_cuda.LAUNCHES.values()) == 0
 
 
-@pytest.mark.parametrize("argv, match", [([], "no CUDA device"),
-                                         (["gftt:32"], "unknown shape")])
+@pytest.mark.parametrize("argv, match", [
+    ([], "no CUDA device"), (["gftt:32"], "unknown shape"),
+    (["lr_check:4x13", "lr_check:4"], "unknown shape"),
+    (["gftt:16x2x2", "lr_check:4x13"], "no CUDA device")])
 def test_shape_sweep_refuses(monkeypatch, argv, match):
-    """The K3-blur and K4 shape sweep refuses an unknown kernel and exits
-    with an error where there is no CUDA device, before any build."""
+    """The shape sweep refuses an unknown kernel or a shape without one
+    positive integer per field of its kernel (K2's strip has three, K5's
+    rows two), and exits with an error where there is no CUDA device,
+    before any build."""
     from tpuslam_torch.tools import shape_sweep
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match=match):

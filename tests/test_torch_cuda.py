@@ -7,9 +7,11 @@ runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 K1-K5 and each phase of the K1 phase harness must equal their plain
-versions exactly (bit for bit for the f32 GFTT response); K6, the LM refine, agrees with its plain version to f32
-reduction order: rvec 1e-5, tvec 1e-4 and the same inliers at 2 px (the
-JAX suite's Pallas-vs-XLA tolerance, tests/test_pnp.py:127-133).  The
+versions exactly (bit for bit for the f32 GFTT response), also at the
+edge cases of K2's tiles and K5's row blocks; K6, the LM refine, agrees
+with its plain version to f32 reduction order: rvec 1e-5, tvec 1e-4 and
+the same inliers at 2 px (the JAX suite's Pallas-vs-XLA tolerance,
+tests/test_pnp.py:127-133).  The
 image inputs are the repository's real 640x480 stereo fixture, cropped to
 the bench's 376 rows.  Two end-to-end tests check through the launch
 counters that the default configuration's chunk step, and a Mapper run
@@ -116,6 +118,51 @@ def test_gftt_kernel(pair):
     ke, kd = T.gftt_response_dil_cuda(pair[0])
     pe, pd = T.gftt_response_dil_plain(pair[0])
     torch.cuda.synchronize()
+    assert torch.equal(ke.view(torch.int32), pe.view(torch.int32))
+    assert torch.equal(kd, pd)
+
+
+def _gftt_case(pair, case):
+    """The (B, H, W) u8 image of one K2 edge case."""
+    img = pair[0]
+    if case == "crop":                   # not a whole number of tiles
+        return img[:, :101, :333].contiguous()
+    if case == "odd_width":              # word-loaded tiles at every
+        return img[:, :, :637].contiguous()  # row alignment
+    if case in ("rows2", "rows3"):       # reflect-101 across the image
+        return img[:, 200:200 + int(case[-1])].contiguous()
+    if case in ("cols2", "cols3"):
+        return img[:, :, 300:300 + int(case[-1])].contiguous()
+    if case == "b1":
+        return img[:1].contiguous()
+    if case == "uniform":
+        return torch.full_like(img, 77)
+    if case == "checkerboard":           # saturated 0/255
+        y = torch.arange(img.shape[1], device=img.device)[:, None]
+        x = torch.arange(img.shape[2], device=img.device)[None, :]
+        board = ((x + y) % 2 * 255).to(torch.uint8)
+        return board.expand(img.shape).contiguous()
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["crop", "odd_width", "rows2", "rows3",
+                                  "cols2", "cols3", "b1", "uniform",
+                                  "checkerboard"])
+def test_gftt_kernel_edges(pair, case):
+    """K2 equals its plain twin (eig bit for bit, the dilation exactly) in
+    one launch: on a crop that is not a whole number of tiles, on an odd
+    width whose rows start at every word alignment, on 2 and 3 rows and
+    columns (reflect-101 of the pixels and of the products reaches across
+    the whole image), on one frame, on a uniform image and on a saturated
+    checkerboard."""
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.kernels import gftt as T
+    img = _gftt_case(pair, case)
+    _cuda.reset_counters()
+    ke, kd = T.gftt_response_dil_cuda(img)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["gftt"] == 1
+    pe, pd = T.gftt_response_dil_plain(img)
     assert torch.equal(ke.view(torch.int32), pe.view(torch.int32))
     assert torch.equal(kd, pd)
 
@@ -231,6 +278,41 @@ def test_lr_check_kernel(pair):
     torch.cuda.synchronize()
     assert torch.equal(k, p)
     assert 0 < int((k != disp).sum()) < 0.05 * disp.numel()
+
+
+# (min_disparity, num_disparities, disp12_max_diff) of the K5 edge cases
+_LR_CFGS = [(0, 64, 1), (-8, 16, 3), (5, 64, 0), (5, 16, 1), (-8, 64, 0)]
+
+
+@pytest.mark.parametrize("cfg", range(len(_LR_CFGS)))
+@pytest.mark.parametrize("width", [1, 65, 637, 1241, 2000])
+def test_lr_check_kernel_random(pair, width, cfg):
+    """K5 equals its plain twin on random int16 disparities (~20 %
+    `filtered`, a few outside the disparity range, which take the general
+    path) and int32 min-SAD below 2^19, at widths from 1 to 2000 (inside
+    one pass of 416 columns per row and across up to 5), with 3 x 5 = 15 and
+    2 x 5 = 10 rows (neither a whole number of K5's blocks of 4 rows),
+    nonzero min_disparity, 16 and 64 disparities and three
+    disp12_max_diff; the 2 frames are a view that starts a frame in."""
+    from tpuslam_torch.config import StereoBMConfig
+    from tpuslam_torch.kernels import stereo_bm as T
+    mindisp, ndisp, max_diff = _LR_CFGS[cfg]
+    rng = np.random.default_rng(width * 10 + cfg)
+    lo, hi = mindisp * 16, (mindisp + ndisp) * 16
+    shape = (3, 5, width)
+    disp = rng.integers(lo - 32, hi + 32, shape).astype(np.int16)
+    disp[rng.uniform(size=shape) < 0.2] = (mindisp - 1) * 16
+    minsad = rng.integers(0, 2 ** 19, shape).astype(np.int32)
+    bm = StereoBMConfig(min_disparity=mindisp, num_disparities=ndisp,
+                        disp12_max_diff=max_diff)
+    d, m = torch.as_tensor(disp).cuda(), torch.as_tensor(minsad).cuda()
+    for dd, mm in ((d, m), (d[1:], m[1:])):
+        k = T.lr_check_cuda(dd, mm, bm)
+        p = T.lr_check_plain(dd, mm, bm)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p)
+    if width > 100:
+        assert (p != d[1:]).any()
 
 
 _LM_K = np.array([[718.856, 0.0, 607.1928], [0.0, 718.856, 185.2157],

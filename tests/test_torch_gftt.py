@@ -47,6 +47,19 @@ def test_response_and_dilation(stereo_pair, rows):
                                   (eig_j > thr_j) & (eig_j == dil_j))
 
 
+@pytest.mark.parametrize("shape", [(5, 7), (17, 130), (3, 9)])
+def test_response_and_dilation_small_shapes(shape):
+    """The plain version of K2 against the Pallas kernel (interpret mode)
+    on random images whose sides are not whole tiles of either: 5x7, 17
+    rows across two of the Pallas kernel's 16-row strips, and 3 rows,
+    where reflect-101 reaches across the whole image."""
+    img = np.random.default_rng(4).integers(0, 256, shape).astype(np.uint8)
+    eig_j, dil_j, eig_t, dil_t = _eig_pair(img)
+    np.testing.assert_allclose(eig_t, eig_j, rtol=2e-6, atol=1e-7)
+    np.testing.assert_allclose(dil_t, dil_j, rtol=2e-6, atol=1e-7)
+    assert (eig_t > 0).any()
+
+
 def test_two_stage_top_k_bit_equal_with_ties():
     """Values everywhere, indices wherever the value is finite, including
     exact ties spanning segment boundaries (lax.top_k breaks ties toward

@@ -210,6 +210,34 @@ def test_lr_consistency_occlusions(rng, max_diff):
     assert (got != disp).any()
 
 
+def _random_lr_inputs(rng, shape, mindisp, ndisp):
+    """Random int16 disparities around [mindisp, mindisp + ndisp) * 16
+    (a few outside it), ~20 % `filtered`, and int32 min-SAD below 2^19:
+    the inputs of the card-only K5 edge tests."""
+    lo, hi = mindisp * 16, (mindisp + ndisp) * 16
+    disp = rng.integers(lo - 32, hi + 32, shape).astype(np.int16)
+    disp[rng.uniform(size=shape) < 0.2] = (mindisp - 1) * 16
+    return disp, rng.integers(0, 2 ** 19, shape).astype(np.int32)
+
+
+@pytest.mark.parametrize("mindisp,ndisp,max_diff", [(-8, 16, 1), (5, 16, 0),
+                                                    (5, 64, 3)])
+def test_lr_consistency_random_offsets(mindisp, ndisp, max_diff):
+    """The plain version of K5 against tpuslam's _lr_consistency on random
+    disparity and min-SAD at nonzero min_disparity and at 16 disparities,
+    2 frames of 8x97, bit for bit."""
+    disp, minsad = _random_lr_inputs(np.random.default_rng(9), (2, 8, 97),
+                                     mindisp, ndisp)
+    kw = dict(min_disparity=mindisp, num_disparities=ndisp,
+              disp12_max_diff=max_diff)
+    got = T._lr_consistency(torch.as_tensor(disp), torch.as_tensor(minsad),
+                            StereoBMConfig(**kw)).numpy()
+    for b in range(2):
+        np.testing.assert_array_equal(got[b],
+                                      _lr_ref(disp[b], minsad[b], **kw))
+    assert (got != disp).any()
+
+
 @pytest.mark.parametrize("rows", [None, 376])
 def test_default_config_bit_equal(stereo_pair, rows):
     """stereo_bm in SlamConfig()'s StereoBM settings (LR check on) on the

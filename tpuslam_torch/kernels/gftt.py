@@ -99,6 +99,15 @@ def gftt_response_dil_cuda(img: torch.Tensor):
     return eig, dil
 
 
+def gftt_kernel_attrs() -> dict:
+    """Registers, shared bytes and local bytes per thread of K2's kernel
+    on the current card, and its strips' output rows and columns and its
+    warps (a strip each) per block."""
+    out = _cuda.attributes("gftt", "tpuslam_gftt_attrs", 6)
+    return dict(zip(("registers", "shared_bytes", "local_bytes",
+                     "strip_rows", "strip_cols", "warps"), out))
+
+
 def _two_stage_top_k(masked: torch.Tensor, k: int, k1: int = 256,
                      m: int = 256):
     """Exact-ordered top-k of (B, n) flat response maps via m contiguous

@@ -379,6 +379,16 @@ def lr_check_cuda(disp: torch.Tensor, minsad: torch.Tensor,
     return out
 
 
+def lr_check_kernel_attrs(width: int) -> dict:
+    """Registers, shared bytes (static and dynamic) and local bytes per
+    thread of K5's kernel at image width `width` (64 disparities from 0)
+    on the current card, its rows (a warp each) and threads per block
+    there, and its columns per lane and pass."""
+    out = _cuda.attributes("lr_check", "tpuslam_lr_check_attrs", 6, width)
+    return dict(zip(("registers", "shared_bytes", "local_bytes", "rows",
+                     "threads", "columns_per_lane"), out))
+
+
 def lr_check(disp, minsad, cfg: StereoBMConfig = StereoBMConfig()):
     """A CUDA tensor goes to kernel K5, a CPU tensor to the plain
     version."""

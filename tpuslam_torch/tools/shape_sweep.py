@@ -1,26 +1,33 @@
-"""Block shapes of K3's blur and of K4 against each other, on the card.
+"""Block shapes of K2, K3's blur, K4 and K5 against each other, on the
+card.
 
     python -m tpuslam_torch.tools.shape_sweep [SHAPE ...]
 
-A SHAPE is `orb_blur:THxTWxNT` (K3's blur: a TH x TW output tile per
-block of NT threads; -DORB_TH, -DORB_TW, -DORB_THREADS) or `median:NT`
-(K4: NT threads per row; -DMED_THREADS).  Each shape's source
-(csrc/orb.cu, csrc/median.cu) is built once per shape with the file's own
-flags, all in parallel, into build/tpuslam_torch/shape_sweep/.  The blur
-runs on the first 30-frame chunk of the bench sequence (chip_smoke.py's,
-rendered on the card) and is held bit for bit to orb_blur; K4 runs on
-chip_smoke.py's rows (N = 1536, ties, +inf, count 0 and 1) and is held
-exactly to masked_median2_plain, then timed on one row.  Every shape is
-timed behind the spin of tools/timing.py, in turns over the shapes so
-that drift of the card's clock spreads over all of them.  The shipped
-shapes are the sources' defaults (the first of each kernel in SHAPES).
-Needs a CUDA card.
+A SHAPE is `gftt:THxCPLxWARPS` (K2: strips of TH output rows, CPL
+columns per lane, WARPS warps per block; -DGFTT_TH, -DGFTT_CPL,
+-DGFTT_WARPS), `orb_blur:THxTWxNT` (K3's blur: a TH x TW output tile per
+block of NT threads; -DORB_TH, -DORB_TW, -DORB_THREADS), `median:NT` (K4:
+NT threads per row; -DMED_THREADS) or `lr_check:RxP` (K5: R image rows,
+a warp each, per block, P columns per lane and pass; -DLR_ROWS,
+-DLR_PIX).  Each shape's source (csrc/gftt.cu, orb.cu, median.cu,
+lr_check.cu) is built once per shape with the file's own flags, all in
+parallel, into build/tpuslam_torch/shape_sweep/.  K2 and the blur run on the first
+30-frame chunk of the bench sequence (chip_smoke.py's, rendered on the
+card) and are held bit for bit to gftt_response_dil_plain and orb_blur;
+K5 runs on K1's disparity and min-SAD of that chunk and is held exactly
+to lr_check_plain; K4 runs on chip_smoke.py's rows (N = 1536, ties,
++inf, count 0 and 1) and is held exactly to masked_median2_plain, then
+timed on one row.  Every shape is timed behind the spin of
+tools/timing.py, in turns over the shapes so that drift of the card's
+clock spreads over all of them.  The shipped shapes are the sources'
+defaults (the first of each kernel in SHAPES).  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import statistics
 import subprocess
@@ -29,26 +36,40 @@ import sys
 import numpy as np
 import torch
 
+from ..config import SlamConfig
 from ..kernels import _cuda
+from ..kernels import gftt as G
 from ..kernels import orb as O
+from ..kernels import stereo_bm as BM
 from ..vo import fused as F
 from .timing import floor_ms, times_ms
 
-# blur shapes whose two f32 tiles fit in 48 KB of static shared memory
-SHAPES = ("orb_blur:8x256x128", "orb_blur:16x256x256", "orb_blur:16x256x128",
+N_FRAMES, WIDTH, HEIGHT, SEED, N_KEYS = 30, 1241, 376, 11, 1536
+# the blur's shapes are those whose two f32 tiles fit in 48 KB of static
+# shared memory
+SHAPES = ("gftt:16x2x2", "gftt:16x2x4", "gftt:12x2x2", "gftt:24x2x2",
+          "gftt:32x2x4", "gftt:16x1x4", "gftt:32x1x4", "gftt:16x4x2",
+          "gftt:16x2x8",
+          "orb_blur:8x256x128", "orb_blur:16x256x256", "orb_blur:16x256x128",
           "orb_blur:8x256x256", "orb_blur:32x128x256", "orb_blur:16x128x128",
           "orb_blur:16x192x256", "orb_blur:32x64x256", "orb_blur:64x64x256",
-          "median:256", "median:128", "median:512", "median:1024")
+          "median:256", "median:128", "median:512", "median:1024",
+          "lr_check:4x13", "lr_check:2x13", "lr_check:8x13", "lr_check:4x10",
+          "lr_check:8x10", "lr_check:4x20", "lr_check:8x20", "lr_check:8x39",
+          "lr_check:8x8")
 # kernel -> (source, -D macros of a shape's fields, launcher, attributes
-# query and its argument count, attributes read)
+# query, its int arguments and its count of outputs)
 KINDS = {
+    "gftt": ("gftt", ("GFTT_TH", "GFTT_CPL", "GFTT_WARPS"), "tpuslam_gftt",
+             "tpuslam_gftt_attrs", (), 6),
     "orb_blur": ("orb", ("ORB_TH", "ORB_TW", "ORB_THREADS"),
-                 "tpuslam_orb_blur", "tpuslam_orb_attrs", 6),
+                 "tpuslam_orb_blur", "tpuslam_orb_attrs", (), 6),
     "median": ("median", ("MED_THREADS",), "tpuslam_masked_median2",
-               "tpuslam_masked_median2_attrs", 4),
+               "tpuslam_masked_median2_attrs", (N_KEYS,), 4),
+    "lr_check": ("lr_check", ("LR_ROWS", "LR_PIX"), "tpuslam_lr_check",
+                 "tpuslam_lr_check_attrs", (WIDTH,), 6),
 }
 ROUNDS, RUNS = 3, 20
-N_FRAMES, WIDTH, HEIGHT, SEED, N_KEYS = 30, 1241, 376, 11, 1536
 
 
 def build(shapes):
@@ -74,19 +95,24 @@ def build(shapes):
             raise RuntimeError(f"nvcc failed for {shape}:\n{log}")
         kind = shape.split(":")[0]
         lib = ctypes.CDLL(str(out))
-        _, _, _, query, n = KINDS[kind]
+        _, _, _, query, args, n = KINDS[kind]
         attrs = (ctypes.c_int * n)()
         fn = getattr(lib, query)
-        if kind == "median":
-            fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-            rc = fn(N_KEYS, attrs)
-        else:
-            fn.argtypes = [ctypes.c_void_p]
-            rc = fn(attrs)
+        fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+        rc = fn(*args, attrs)
         if rc != 0:
             raise RuntimeError(f"{query} of {shape}: cudaError {rc}")
         built[shape] = (lib, attrs[0], attrs[1], attrs[2])
     return built
+
+
+@functools.lru_cache(maxsize=1)
+def _chunk():
+    """The first 30-frame chunk of the bench sequence, on the card."""
+    from ..io.synthetic import make_sequence
+    lefts, rights = make_sequence(N_FRAMES, WIDTH, HEIGHT, 718.856, 0.54,
+                                  1.4, 0.003, SEED)[:2]
+    return lefts.contiguous(), rights.contiguous()
 
 
 def _median_rows():
@@ -113,21 +139,54 @@ def _caller(kind, lib):
     launcher = KINDS[kind][2]
     fn = getattr(lib, launcher)
     fn.restype = ctypes.c_int
-    name = "orb_blur" if kind == "orb_blur" else "median"
-    fn.argtypes = _cuda.SIGNATURES[name][1]
+    fn.argtypes = _cuda.SIGNATURES[kind][1]
+
+    def launch(*args):
+        rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                  for a in args], stream())
+        if rc != 0:
+            raise RuntimeError(f"{launcher}: cudaError {rc}")
+
+    if kind == "gftt":
+        lefts = _chunk()[0]
+        eig = torch.empty(lefts.shape, dtype=torch.float32,
+                          device=lefts.device)
+        dil = torch.empty_like(eig)
+
+        def call():
+            launch(lefts, eig, dil, *lefts.shape)
+
+        def check():
+            call()
+            pe, pd = G.gftt_response_dil_plain(lefts)
+            if not (torch.equal(eig.view(torch.int32), pe.view(torch.int32))
+                    and torch.equal(dil, pd)):
+                raise AssertionError("K2 differs from "
+                                     "gftt_response_dil_plain")
+        return check, call
+
+    if kind == "lr_check":
+        bm = SlamConfig().bm
+        disp, minsad = BM.stereo_bm_cuda(*_chunk(), bm)
+        out = torch.empty_like(disp)
+
+        def call():
+            launch(disp, minsad, out, *disp.shape, bm.min_disparity,
+                   bm.num_disparities, bm.disp12_max_diff * 16)
+
+        def check():
+            call()
+            if not torch.equal(out, BM.lr_check_plain(disp, minsad, bm)):
+                raise AssertionError("K5 differs from lr_check_plain")
+        return check, call
+
     if kind == "orb_blur":
-        from ..io.synthetic import make_sequence
-        lefts = make_sequence(N_FRAMES, WIDTH, HEIGHT, 718.856, 0.54, 1.4,
-                              0.003, SEED)[0].contiguous()
-        B, H, W = lefts.shape
+        lefts = _chunk()[0]
         taps = O._gauss_taps(lefts.device)
         out = torch.empty_like(lefts)
 
         def call():
-            rc = fn(lefts.data_ptr(), taps.data_ptr(), out.data_ptr(), B, H,
-                    W, stream())
-            if rc != 0:
-                raise RuntimeError(f"{launcher}: cudaError {rc}")
+            launch(lefts, taps, out, *lefts.shape)
 
         def check():
             call()
@@ -139,19 +198,13 @@ def _caller(kind, lib):
     meds = torch.empty((5, 2), dtype=torch.float32, device="cuda")
     cnt = torch.empty(5, dtype=torch.int32, device="cuda")
 
-    def run(rows):
-        rc = fn(a.data_ptr(), b.data_ptr(), m.data_ptr(), meds.data_ptr(),
-                cnt.data_ptr(), rows, N_KEYS, stream())
-        if rc != 0:
-            raise RuntimeError(f"{launcher}: cudaError {rc}")
-
     def check():
-        run(5)
+        launch(a, b, m, meds, cnt, 5, N_KEYS)
         pa, pb, pc = F.masked_median2_plain(a, b, m)
         if not (torch.equal(meds[:, 0], pa) and torch.equal(meds[:, 1], pb)
                 and torch.equal(cnt.long(), pc)):
             raise AssertionError("K4 differs from masked_median2_plain")
-    return check, lambda: run(1)
+    return check, lambda: launch(a, b, m, meds, cnt, 1, N_KEYS)
 
 
 def run(shapes=SHAPES):
@@ -174,12 +227,20 @@ def run(shapes=SHAPES):
     return list(rows.values())
 
 
+def _known(shape):
+    """A kernel of KINDS with one positive integer per -D macro."""
+    kind, _, dims = shape.partition(":")
+    fields = dims.split("x")
+    return (kind in KINDS and len(fields) == len(KINDS[kind][1]) and
+            all(f.isdigit() and int(f) > 0 for f in fields))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("shapes", nargs="*", default=list(SHAPES))
     a = ap.parse_args(argv)
     for s in a.shapes:
-        if s.split(":")[0] not in KINDS:
+        if not _known(s):
             raise SystemExit(f"shape_sweep: unknown shape {s}")
     if not torch.cuda.is_available():
         raise SystemExit("shape_sweep: no CUDA device (torch.cuda."
@@ -190,7 +251,7 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip()
     rows = run(a.shapes)
     floor = floor_ms()
-    print(f"# K3 blur and K4 shapes; card: {smi}; launch floor "
+    print(f"# K2, K3 blur, K4 and K5 shapes; card: {smi}; launch floor "
           f"{floor:.4f} ms")
     print(f"{'shape':22s} {'regs':>5s} {'smem B':>7s} {'local B':>8s} "
           f"{'ms':>8s} {'IQR ms':>7s}")
