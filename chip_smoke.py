@@ -35,10 +35,23 @@ tpuslam.  Phases, each of which raises on failure:
 7. post-loop: the robust pose graph and global BA on the timed run's
    Mapper; assert finite poses and a non-empty graph;
 8. slice path: the first slice's configuration (no LR check, no refine,
-   no Mapper), timed, with its own counters (K1-K4) and ATE bound.
+   no Mapper), timed, with its own counters (K1-K4) and ATE bound;
+9. per-frame batch path: write a 61-frame out-and-back 1241x376 sequence
+   (KITTI layout, PNGs) rendered on the card, then run the batch app
+   (tpuslam_torch.cli.slam_batch.run, SlamConfig() with a small-memory
+   Mapper) over it, a few frames warm and all of them timed, every counter
+   reset just before the timed run; assert K1, K2, K3 and K5 once per
+   frame, K6 more often than the odometry's registrations alone (loop
+   closure ran on the card), K4 never, no plain version, a node per
+   frame, a loop closure, no lost frame, the five output files, occupied
+   voxels and ATE within the bound of PERF.md; hold the speckle filter on
+   the card to the CPU bit for bit (one frame, and a 30-frame batch);
+   print fps, the perf spans' totals, the speckle rounds and the PNG
+   decode time.
 
-With --spread N the main path is run again with RANSAC seeds 1..N and the
-quality of each is printed (the data behind PERF.md's ATE bound).
+With --spread N the main path and the per-frame path are run again with
+RANSAC seeds 1..N and the quality of each is printed (the data behind
+PERF.md's ATE bounds).
 
 Prints fps, inliers, ATE and KITTI errors, one JSON line of per-kernel
 numbers (the harness's row with its per-phase numbers under "phases"), the
@@ -51,6 +64,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -70,6 +84,20 @@ MAX_LOST, MIN_MEDIAN_INLIERS, MAX_T_ERR_PCT = 0, 300, 1.0
 # (main path: 0.4727-0.5654 m over ten seeds on the card)
 ATE_BOUND_M = 0.75
 SLICE_ATE_BOUND_M = 1.0
+# the per-frame batch path: an out-and-back sequence over the bench's
+# camera (tpuslam_torch.io.synthetic.out_and_back_trajectory), 2 * 30 + 1
+# frames; the Mapper of tests/test_slam_e2e.py:25-27 (a full node every 2
+# frames, 3 in short-term memory), since the default one (30) holds every
+# node of 61 frames in short-term memory and so closes no loop
+PF_FORWARD, PF_SPEED, PF_SEED, PF_WARM_FRAMES = 30, 0.45, 7, 4
+PF_MAP_UPDATE, PF_MAX_STM = 2, 3
+# ATE bound of the per-frame path: tpuslam's own run of these poses on
+# the CPU reads 0.0270 m; the port over six RANSAC seed sets on the card
+# 0.0199-0.0280 m (PERF.md "End-to-end metrics"); 1.33x the worst
+PF_ATE_BOUND_M = 0.037
+PF_OUTPUTS = ("map_poses.csv", "map_links.csv", "optimized_poses.csv",
+              "slam.bt", "perf_time.csv")
+PF_SPANS = ("captureImageLR", "frontend", "odom.process", "mapper.process")
 # K6 against its plain version: f32 reduction order (tests/test_pnp.py)
 LM_TOL = dict(rvec=1e-5, tvec=1e-4, inlier_px=2.0)
 
@@ -495,6 +523,236 @@ def slice_phase(camera, staged, items, gt):
     return fps
 
 
+def pf_config():
+    from tpuslam_torch.config import MapperConfig, SlamConfig
+    return SlamConfig().replace(mapper=MapperConfig(
+        map_update=PF_MAP_UPDATE, max_stm_size=PF_MAX_STM))
+
+
+def pf_draws(k):
+    """RANSAC uniforms of seed set k for every registration (seed ->
+    (300, 6)); None (k = 0) keeps the path's own generator."""
+    if k == 0:
+        return None
+    return lambda seed: np.random.default_rng((k, seed)).random(
+        (300, 6), dtype=np.float32)
+
+
+def span_totals(path):
+    """The perf_time.csv column totals (ms) of PF_SPANS."""
+    with open(path) as f:
+        names = f.readline().strip().split(",")[1:]
+        rows = [[float(v) for v in line.strip().split(",")[1:]]
+                for line in f if line.strip()]
+    return {n: sum(r[i] for r in rows) for i, n in enumerate(names)
+            if n in PF_SPANS}
+
+
+def speckle_check(lefts, rights, cfg):
+    """The speckle filter on the card against the same function on the
+    CPU, bit for bit: one frame's disparity and a 30-frame batch; returns
+    the card's ms for one frame (unspun: it reads its convergence flag on
+    the host) and the 30-frame batch."""
+    from tpuslam_torch.kernels import stereo_bm as BM
+    from tpuslam_torch.tools.timing import call_ms
+    bm = cfg.bm
+    disp = BM.stereo_bm_lr(lefts, rights, bm)
+    args = (bm.speckle_window_size, bm.speckle_range,
+            (bm.min_disparity - 1) * 16)
+    one, conv = BM.speckle_filter_with_flag(disp[0], *args)
+    one_cpu, _ = BM.speckle_filter_with_flag(disp[0].cpu(), *args)
+    batch, _ = BM.speckle_filter_batch(disp, *args)
+    batch_cpu, _ = BM.speckle_filter_batch(disp.cpu(), *args)
+    if not (conv and torch.equal(one.cpu(), one_cpu) and
+            torch.equal(batch.cpu(), batch_cpu)):
+        raise AssertionError("speckle: the card differs from the CPU")
+    removed = int(((batch != disp) & (batch == args[2])).sum())
+    frame_ms = call_ms(lambda: BM.speckle_filter_with_flag(disp[0], *args),
+                       runs=5)
+    batch_ms = call_ms(lambda: BM.speckle_filter_batch(disp, *args), runs=3)
+    log(f"# speckle: card == CPU bit for bit (1 frame, {len(disp)}-frame "
+        f"batch; {removed} pixels filtered in the batch); card {frame_ms:.3f}"
+        f" ms per frame, {batch_ms:.3f} ms per {len(disp)}-frame batch "
+        f"(unspun, its host reads included)")
+    return frame_ms, batch_ms
+
+
+def paeth_png(img):
+    """PNG bytes of an (H, W) uint8 image with every row Paeth-filtered,
+    the filter libpng and Pillow pick for most rows of a photograph (and
+    of KITTI's images); io/png.py decodes those pixel by pixel."""
+    import struct
+    import zlib
+    from tpuslam_torch.io import png
+    x = img.astype(np.int16)
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    h, w = img.shape
+    rows = np.empty((h, w + 1), np.uint8)
+    rows[:, 0] = 4
+    rows[:, 1:] = (x - pred) & 255
+    return (png.SIGNATURE +
+            png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0,
+                                            0)) +
+            png._chunk(b"IDAT", zlib.compress(rows.tobytes())) +
+            png._chunk(b"IEND", b""))
+
+
+def per_frame_phase(workdir):
+    """The batch app (cli/slam_batch.py) over a written out-and-back
+    sequence: a warm run of a few frames, then every counter reset and a
+    timed run of all of them."""
+    import os
+    import statistics
+    from tpuslam_torch.cli import slam_batch
+    from tpuslam_torch.io import png
+    from tpuslam_torch.io.synthetic import out_and_back_trajectory, \
+        write_sequence
+    from tpuslam_torch.kernels import _cuda, stereo_bm as BM
+    from tpuslam_torch.mapping import mapper as M
+    from tpuslam_torch.vo import odometry as O
+
+    seq = os.path.join(workdir, "seq")
+    poses = out_and_back_trajectory(PF_FORWARD, PF_SPEED)
+    n = len(poses)
+    t0 = time.perf_counter()
+    write_sequence(seq, width=WIDTH, height=HEIGHT, f=FOCAL,
+                   baseline=BASELINE, poses=poses, seed=PF_SEED)
+    log(f"# per-frame path: wrote {n} stereo pairs (rendered on the card, "
+        f"PNG-encoded) in {time.perf_counter() - t0:.2f} s")
+    files = [os.path.join(seq, d, f) for d in ("image_0", "image_1")
+             for f in sorted(os.listdir(os.path.join(seq, d)))]
+    dec = []
+    for path in files:
+        t0 = time.perf_counter()
+        png.read_png(path)
+        dec.append((time.perf_counter() - t0) * 1e3)
+    log(f"# per-frame path: PNG decode {statistics.median(dec):.3f} ms per "
+        f"{WIDTH}x{HEIGHT} image (median of {len(dec)}; max "
+        f"{max(dec):.3f}; host CPU)")
+    img = png.read_png(files[0])
+    data = paeth_png(img)
+    paeth = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        if not np.array_equal(png.decode(data), img):
+            raise AssertionError("PNG: a Paeth-filtered image decodes wrong")
+        paeth.append((time.perf_counter() - t0) * 1e3)
+    log(f"# per-frame path: PNG decode of the same image with every row "
+        f"Paeth-filtered {statistics.median(paeth):.3f} ms (median of 5; "
+        f"host CPU)")
+
+    cfg = pf_config()
+    t0 = time.perf_counter()
+    slam_batch.run(seq, cfg, num_images=PF_WARM_FRAMES - 1, quiet=True,
+                   out_dir=os.path.join(workdir, "warm"))
+    log(f"# per-frame path: warm run of {PF_WARM_FRAMES} frames "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the odometry's and the loop closure's registrations (calls, K6
+    # launches, host ms: each ends in host reads of its result), and each
+    # frame's OdomInfo
+    orig, process, infos = O.compute_transform, O.Odometry.process, []
+    reg = {"vo": [0, 0, 0.0], "lc": [0, 0, 0.0]}
+
+    def counted(kind):
+        def call(*args, **kw):
+            before = _cuda.LAUNCHES["lm_refine"]
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            r = reg[kind]
+            r[0] += 1
+            r[1] += _cuda.LAUNCHES["lm_refine"] - before
+            r[2] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    def recorded(self, frame):
+        infos.append(process(self, frame))
+        return infos[-1]
+
+    out = os.path.join(workdir, "out")
+    O.compute_transform, O.Odometry.process = counted("vo"), recorded
+    M.compute_transform = counted("lc")
+    try:
+        BM.SPECKLE_ROUNDS.clear()
+        _cuda.reset_counters()
+        torch.cuda.synchronize()
+        res = slam_batch.run(seq, cfg, quiet=True, out_dir=out)
+        torch.cuda.synchronize()
+    finally:
+        O.compute_transform, O.Odometry.process = orig, process
+        M.compute_transform = orig
+    vo = reg["vo"]
+    launches, plain = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+    rounds = sorted(BM.SPECKLE_ROUNDS)
+    spans = span_totals(os.path.join(out, "perf_time.csv"))
+    log(f"# per-frame path: {n} frames {WIDTH}x{HEIGHT} at "
+        f"{res['fps']:.3f} fps (run()'s own); "
+        f"{res['n_nodes']} nodes, {res['n_links']} links, "
+        f"{res['n_loop_closures']} loop closures, "
+        f"{res['n_occupied_voxels']} occupied voxels")
+    log(f"# per-frame path: ATE={res['ate_m']:.4f} m, "
+        f"t_err={res['t_err_pct']:.4f} %, "
+        f"r_err={res['r_err_deg_per_m']:.6f} deg/m (optimized poses)")
+    log("# per-frame path: span totals " + ", ".join(
+        f"{k} {spans.get(k, 0.0):.1f} ms ({spans.get(k, 0.0) / n:.2f} ms "
+        f"per frame)" for k in PF_SPANS))
+    log(f"# per-frame path: speckle rounds per frame median "
+        f"{rounds[len(rounds) // 2]}, max {rounds[-1]} (checked every "
+        f"{BM.SPECKLE_CHECK_EVERY})")
+    for kind, what in (("vo", "odometry"), ("lc", "loop-closure")):
+        c, k6, ms = reg[kind]
+        log(f"# per-frame path: {c} {what} registrations, K6 launched {k6} "
+            f"times, {ms:.1f} ms host wall ({ms / max(c, 1):.2f} ms each)")
+    log(f"# per-frame path: launches {launches}, plain calls {plain}")
+
+    lost = sum(1 for i in infos if i.lost)
+    inl = sorted(i.num_inliers for i in infos[1:])
+    log(f"# per-frame path: lost {lost}, inliers median {inl[len(inl) // 2]}"
+        f", min {inl[0]}; {sum(i.keyframe_added for i in infos)} keyframes")
+    for k in ("stereo_bm", "lr_check", "gftt", "orb"):
+        if launches[k] != n:
+            raise AssertionError(f"per-frame path: {k} launched "
+                                 f"{launches[k]} times, not once per frame")
+    if not launches["lm_refine"] > vo[1]:
+        raise AssertionError("per-frame path: K6 ran in no loop closure")
+    if launches["median"] or any(launches[k] for k in _cuda.TOOLS) or \
+            any(plain.values()):
+        raise AssertionError(f"per-frame path: launches {launches}, plain "
+                             f"{plain}")
+    missing = [f for f in PF_OUTPUTS
+               if not os.path.exists(os.path.join(out, f))]
+    if res["n_nodes"] != n or res["n_loop_closures"] < 1 or lost or \
+            missing or not res["n_occupied_voxels"] > 0:
+        raise AssertionError(f"per-frame path: nodes {res['n_nodes']}, loop "
+                             f"closures {res['n_loop_closures']}, lost {lost}"
+                             f", missing {missing}")
+    if not res["ate_m"] <= PF_ATE_BOUND_M:
+        raise AssertionError(f"per-frame path: ATE {res['ate_m']} m above "
+                             f"the bound {PF_ATE_BOUND_M} m")
+    return seq, res["fps"], launches
+
+
+def pf_spread_phase(seq, workdir, n):
+    """The per-frame path with RANSAC seed sets 1..n (quality only)."""
+    import os
+    from tpuslam_torch.cli import slam_batch
+    ates = []
+    for k in range(1, n + 1):
+        res = slam_batch.run(seq, pf_config(), quiet=True,
+                             out_dir=os.path.join(workdir, f"spread{k}"),
+                             draws_fn=pf_draws(k))
+        ates.append(res["ate_m"])
+        log(f"# per-frame spread seed set {k}: {res['fps']:.3f} fps; "
+            f"ATE={res['ate_m']:.4f} m, {res['n_loop_closures']} loop "
+            f"closures")
+    log(f"# per-frame spread over {n} seed sets: ATE {min(ates):.4f}-"
+        f"{max(ates):.4f} m")
+
+
 def spread_phase(camera, cfg, staged, items, gt, n):
     """The main path with RANSAC seeds 1..n (quality only)."""
     from tpuslam_torch.mapping.mapper import Mapper
@@ -557,8 +815,15 @@ def main():
     lm_phase(rows, frame1_args, camera, cfg)
     post_loop_phase(mapper, camera, cfg, gt)
     slice_fps = slice_phase(camera, staged, items, gt)
-    log(f"# fps: default configuration + Mapper {fps:.3f}, slice "
-        f"{slice_fps:.3f}")
+    speckle_check(*chunk, cfg)
+    with tempfile.TemporaryDirectory() as workdir:
+        seq, pf_fps, pf_launches = per_frame_phase(workdir)
+        log(f"# fps: default configuration + Mapper {fps:.3f}, slice "
+            f"{slice_fps:.3f}, per-frame batch path {pf_fps:.3f}")
+        log("# per-frame path launches per kernel: " + json.dumps(
+            {k: pf_launches[k] for k in _cuda.KERNELS}))
+        if args.spread:
+            pf_spread_phase(seq, workdir, args.spread)
     if args.spread:
         spread_phase(camera, cfg, staged, items, gt, args.spread)
 

@@ -25,12 +25,29 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["config.py", "geometry/transform.py", "geometry/camera.py",
-          "geometry/kitti_metric.py", "vo/frame.py", "mapping/graph.py"]
+          "geometry/kitti_metric.py", "vo/frame.py", "mapping/graph.py",
+          "runtime/perf.py", "mapping3d/octree_bt.py"]
+# numpy functions and classes copied into a module of the port that also
+# holds torch code: (module path, name)
+COPIED_DEFS = [("kernels/gftt.py", "select_from_candidates"),
+               ("kernels/gftt.py", "select_keypoints"),
+               ("kernels/gftt.py", "_grid_suppress"),
+               ("kernels/orb.py", "run_by_image_border"),
+               ("io/dataset.py", "list_images"),
+               ("io/dataset.py", "import_poses"),
+               ("io/dataset.py", "save_poses"),
+               ("io/dataset.py", "load_poses"),
+               ("io/dataset.py", "save_links"),
+               ("io/dataset.py", "load_links"),
+               ("io/synthetic.py", "out_and_back_trajectory"),
+               ("runtime/pipeline.py", "_keypoints_3d"),
+               ("mapping3d/occupancy.py", "OccupancyGrid"),
+               ("mapping3d/occupancy.py", "_cam_vector"),
+               ("vo/odometry.py", "OdomInfo")]
 KERNELS = ["stereo_bm", "gftt", "orb", "median", "lr_check", "lm_refine"]
 
 
-def _code_without_docstrings(path):
-    tree = ast.parse(open(path).read())
+def _without_docstrings(tree):
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if isinstance(body, list) and body and \
@@ -41,11 +58,31 @@ def _code_without_docstrings(path):
     return ast.dump(tree)
 
 
+def _code_without_docstrings(path):
+    return _without_docstrings(ast.parse(open(path).read()))
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_has_the_original_code(rel):
     assert _code_without_docstrings(
         os.path.join(ROOT, "tpuslam_torch", rel)) == \
         _code_without_docstrings(os.path.join(ROOT, "tpuslam", rel))
+
+
+def _definition(path, name):
+    """The code of top-level function or class `name` of `path`,
+    docstrings aside."""
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and \
+                node.name == name:
+            return _without_docstrings(node)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("rel, name", COPIED_DEFS)
+def test_copied_definition_has_the_original_code(rel, name):
+    assert _definition(os.path.join(ROOT, "tpuslam_torch", rel), name) == \
+        _definition(os.path.join(ROOT, "tpuslam", rel), name)
 
 
 def _as_tree(obj):
@@ -147,16 +184,17 @@ def test_frame_and_odominfo_fields():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port, its main path included, loads no JAX."""
+    """Importing the port, its main path and its batch app included,
+    loads no JAX, no tpuslam and no Pillow."""
     code = ("import sys; import tpuslam_torch; "
             "import tpuslam_torch.runtime.fast_pipeline, "
             "tpuslam_torch.io.synthetic, tpuslam_torch.convert, "
             "tpuslam_torch.mapping.mapper, tpuslam_torch.mapping.ba_window, "
             "tpuslam_torch.mapping.chunk_dict, tpuslam_torch.optim, "
-            "tpuslam_torch.optim.ba; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'tpuslam' or "
-            "m.startswith('tpuslam.')]; assert not bad, bad")
+            "tpuslam_torch.optim.ba, tpuslam_torch.cli.slam_batch, "
+            "tpuslam_torch.mapping3d, tpuslam_torch.io.dataset; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'tpuslam', 'PIL')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    env=env, timeout=120)
@@ -164,8 +202,8 @@ def test_import_leaves_jax_out():
 
 def test_no_jax_or_tpuslam_import_in_port():
     import re
-    pat = re.compile(r"^\s*(import\s+(jax|tpuslam)\b(?!_)|"
-                     r"from\s+(jax|tpuslam)\b(?!_))", re.M)
+    pat = re.compile(r"^\s*(import\s+(jax|tpuslam|PIL)\b(?!_)|"
+                     r"from\s+(jax|tpuslam|PIL)\b(?!_))", re.M)
     pkg = os.path.join(ROOT, "tpuslam_torch")
     for dirpath, _, files in os.walk(pkg):
         for name in files:
@@ -291,6 +329,11 @@ def test_kernel_table_names_every_kernel():
 
 def _entry_points():
     from tpuslam_torch import convert
+    from tpuslam_torch.cli import slam_batch
+    from tpuslam_torch.io.synthetic import write_sequence
+    from tpuslam_torch.mapping3d import occupancy
+    from tpuslam_torch.runtime import pipeline
+    from tpuslam_torch.vo.odometry import Odometry
     from tpuslam_torch.io.synthetic import BoxWorld, make_sequence
     from tpuslam_torch.kernels.pnp import solve_pnp_ransac
     from tpuslam_torch.mapping import ba_window
@@ -314,6 +357,13 @@ def _entry_points():
         "solve_pnp_ransac": solve_pnp_ransac,
         "refine_trajectory_ba": ba_window.refine_trajectory_ba,
         "refine_trajectory_global_ba": ba_window.refine_trajectory_global_ba,
+        "Odometry": Odometry.__init__,
+        "extract_features": pipeline.extract_features,
+        "frontend_dispatch": pipeline.frontend_dispatch,
+        "slam_batch.run": slam_batch.run,
+        "write_sequence": write_sequence,
+        "build_occupancy_grid_map": occupancy.build_occupancy_grid_map,
+        "insert_depth_frame": occupancy.insert_depth_frame,
     }
 
 
@@ -324,7 +374,11 @@ def _entry_points():
                                   "VWDictionary", "ChunkDictDriver",
                                   "compute_transform", "solve_pnp_ransac",
                                   "refine_trajectory_ba",
-                                  "refine_trajectory_global_ba"])
+                                  "refine_trajectory_global_ba", "Odometry",
+                                  "extract_features", "frontend_dispatch",
+                                  "slam_batch.run", "write_sequence",
+                                  "build_occupancy_grid_map",
+                                  "insert_depth_frame"])
 def test_entry_point_defaults_to_the_card(name):
     """Every entry point runs on the card unless the caller asks for the
     CPU (read from the signature: nothing is built here)."""

@@ -15,7 +15,9 @@ tests/test_pnp.py:127-133).  The
 image inputs are the repository's real 640x480 stereo fixture, cropped to
 the bench's 376 rows.  Two end-to-end tests check through the launch
 counters that the default configuration's chunk step, and a Mapper run
-whose loop closure fires, launch the kernels and no plain version.
+whose loop closure fires, launch the kernels and no plain version; a
+third does so for the batch app (the per-frame path), and the speckle
+filter on the card is held to the CPU bit for bit.
 """
 
 import os
@@ -434,3 +436,59 @@ def test_default_config_chunk_runs_all_kernels():
                                         stereo_bm_phase=0, orb_blur=0,
                                         orb_tests=0)
     assert not any(_cuda.PLAIN_CALLS.values())
+
+
+@pytest.mark.parametrize("batch", [1, 30])
+def test_speckle_card_equals_cpu(batch):
+    """The speckle filter on the card equals the same function on the CPU,
+    bit for bit, on StereoBM disparity of rendered 1241x376 frames: one
+    frame (speckle_filter_with_flag) and a 30-frame batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.config import StereoBMConfig
+    from tpuslam_torch.io.synthetic import make_sequence
+    from tpuslam_torch.kernels import stereo_bm as BM
+    lefts, rights, _, _ = make_sequence(batch, 1241, 376, 718.856, 0.54,
+                                        1.4, 0.003, seed=11)
+    bm = StereoBMConfig()
+    disp = BM.stereo_bm_lr(lefts, rights, bm)
+    args = (bm.speckle_window_size, bm.speckle_range, -16)
+    if batch == 1:
+        got, conv = BM.speckle_filter_with_flag(disp[0], *args)
+        want, _ = BM.speckle_filter_with_flag(disp[0].cpu(), *args)
+    else:
+        got, conv = BM.speckle_filter_batch(disp, *args)
+        want, _ = BM.speckle_filter_batch(disp.cpu(), *args)
+    assert conv and got.is_cuda
+    assert torch.equal(got.cpu(), want)
+    assert int((got != disp[0 if batch == 1 else slice(None)]).sum()) > 0
+
+
+def test_batch_app_runs_kernels_and_closes_a_loop(tmp_path):
+    """The batch app (cli/slam_batch.run) on the card over a written
+    320x240 out-and-back sequence: K1, K2, K3 and K5 once per frame, K6
+    beyond the odometry's registrations (loop closure), K4 never, no plain
+    version, a loop closed and no frame lost."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.cli.slam_batch import run
+    from tpuslam_torch.config import SlamConfig, MapperConfig
+    from tpuslam_torch.io.synthetic import out_and_back_trajectory, \
+        write_sequence
+    from tpuslam_torch.kernels import _cuda
+    poses = out_and_back_trajectory(7, 0.45)
+    seq = write_sequence(str(tmp_path), width=320, height=240, f=250.0,
+                         poses=poses, seed=7)
+    cfg = SlamConfig().replace(mapper=MapperConfig(map_update=2,
+                                                   max_stm_size=3))
+    _cuda.reset_counters()
+    res = run(seq, cfg, quiet=True)
+    torch.cuda.synchronize()
+    n = len(poses)
+    assert res["n_nodes"] == n and res["n_loop_closures"] >= 1
+    assert all(_cuda.LAUNCHES[k] == n
+               for k in ("stereo_bm", "lr_check", "gftt", "orb"))
+    assert _cuda.LAUNCHES["median"] == 0
+    assert _cuda.LAUNCHES["lm_refine"] >= n - 1 + res["n_loop_closures"]
+    assert not any(_cuda.PLAIN_CALLS.values())
+    assert np.isfinite(res["ate_m"]) and res["n_occupied_voxels"] > 0

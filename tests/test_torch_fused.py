@@ -162,7 +162,9 @@ def test_unported_paths_raise(fwd_seq, case):
     from tpuslam_torch import config as C
     cfg = convert.config_from_reference(_default_cfg())
     cam = convert.camera_from_reference(_camera(fwd_seq))
-    bad = {"speckle": cfg.replace(fused_speckle=True),
+    # fused speckle is ported for StereoBM; SGBM's (x16 range) is not
+    bad = {"speckle": cfg.replace(fused_speckle=True,
+                                  depth_method=C.DepthMethod.SGBM),
            "sgbm": cfg.replace(depth_method=C.DepthMethod.SGBM)}
     with pytest.raises(NotImplementedError):
         FastSlamPipeline(cam, bad[case], chunk=6, capacity=384,

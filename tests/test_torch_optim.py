@@ -77,7 +77,7 @@ def test_device_backend_not_ported():
     from tpuslam_torch.optim import run_optimize, run_optimize_robust
     poses, links = convert.graph_from_reference(*_graph(0))
     for fn in (run_optimize, run_optimize_robust):
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(NotImplementedError, match="A5"):
             fn(poses, links, 5, backend="device")
 
 

@@ -1,0 +1,286 @@
+"""tpuslam_torch's per-frame path (runtime/pipeline.py, vo/odometry.py)
+and batch app (cli/slam_batch.py) against tpuslam's.
+
+`Odometry`'s state machine is held exactly with a scripted registration.
+The whole path runs on a 6-frame 320x240 tpuslam-written sequence (f =
+250, as test_torch_fused.py) in SlamConfig() with a small Mapper that
+closes a loop, tpuslam's RANSAC draws injected into the port.
+Tolerances:
+- disparity: the port's is cv2.filterSpeckles of tpuslam's unspeckled
+  disparity, bit for bit; tpuslam's 16 speckle rounds do not converge on
+  these frames, so it differs from the port only where it filtered more
+  (test_torch_speckle.py);
+- keypoints exact, their responses and the descriptors as
+  test_torch_gftt.py and test_torch_orb.py hold them: XLA's CPU backend
+  contracts FMAs in the GFTT response and the ORB blur (rtol 2e-6; a
+  blurred pixel may move by one level and flip a test bit);
+- 3D points to 1e-5 m where both disparities agree;
+- lost and keyframe flags equal, inliers within 2, VO and optimized
+  translations within 1e-3 m (registration noise, as test_torch_fused.py);
+- graph sizes and output files equal, occupied voxels within 1 % (the
+  speckle difference moves a few voxels).
+"""
+
+import dataclasses
+import os
+
+import cv2
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tpuslam.config import SlamConfig, MapperConfig
+from tpuslam_torch import convert
+
+# the suite runs several worker processes on the machine's cores: more
+# intra-op threads per worker oversubscribe them and spin-wait
+torch.set_num_threads(1)
+
+OUTPUTS = ("map_poses.csv", "map_links.csv", "optimized_poses.csv",
+           "slam.bt", "perf_time.csv")
+
+
+def _jax_draws(seed):
+    return np.array(jax.random.uniform(jax.random.PRNGKey(seed), (300, 6)))
+
+
+# --- Odometry's state machine, with a scripted registration ---------------
+
+# per registration call: (transform step or None, matches, inliers); the
+# calls of frames 1-6: found; a wrong guess (40 < 0.25 * 200) retried
+# without it; lost twice (guess, then retry); found after the loss with a
+# zero-velocity guess; found with few inliers (a keyframe); found
+SCRIPT = [((0.01, 0, 0.002, 0.4, 0, 0.0), 200, 180),
+          ((0.02, 0, 0.0, 0.5, 0, 0.0), 40, 30),
+          ((0.0, 0.01, 0.001, 0.45, 0, 0.01), 190, 140),
+          (None, 10, 0), (None, 5, 0),
+          ((0.0, 0, 0.003, 0.9, 0.02, 0.0), 300, 280),
+          ((0.01, 0, 0.0, 0.4, 0, 0.0), 280, 100),
+          ((0.0, 0, 0.0, 0.41, 0, 0.0), 290, 270)]
+N_KPTS = [500, 480, 470, 460, 450, 440, 430]
+
+
+def _scripted_run(monkeypatch, pkg):
+    """Odometry of `pkg` over 7 frames against SCRIPT -> (infos, calls:
+    whether each call had a guess)."""
+    import importlib
+    odo = importlib.import_module(f"{pkg}.vo.odometry")
+    reg = importlib.import_module(f"{pkg}.vo.registration")
+    frame_mod = importlib.import_module(f"{pkg}.vo.frame")
+    tr = importlib.import_module(f"{pkg}.geometry.transform")
+    calls = []
+
+    def fake(frame_from, frame_to, guess, camera, **kw):
+        step, matches, inliers = SCRIPT[len(calls)]
+        calls.append(guess is not None)
+        info = reg.RegInfo(covariance=np.eye(6) * (len(calls) + 1),
+                           num_matches=matches, num_inliers=inliers)
+        return (None if step is None else tr.from_rpy_xyz(*step)), info
+
+    monkeypatch.setattr(odo, "compute_transform", fake)
+    cam = _camera(240, 320)
+    kw = {} if pkg == "tpuslam" else dict(device="cpu")
+    o = odo.Odometry(cam, **kw)
+    infos = []
+    for i, n in enumerate(N_KPTS):
+        frame = frame_mod.Frame(stamp=0.1 * i,
+                                kpts=np.zeros((n, 3), np.float32))
+        infos.append(o.process(frame))
+    assert len(calls) == len(SCRIPT)
+    return infos, calls
+
+
+def test_odometry_state_machine_scripted(monkeypatch):
+    """OdomInfo equal field by field over found, wrong-guess retry, lost,
+    recovery and keyframe switches; the same calls with the same guesses."""
+    ref, ref_calls = _scripted_run(monkeypatch, "tpuslam")
+    got, got_calls = _scripted_run(monkeypatch, "tpuslam_torch")
+    assert got_calls == ref_calls == [False, True, False, True, False,
+                                      True, True, True]
+    assert [i.lost for i in got] == [False, False, False, True, False,
+                                     False, False]
+    assert [i.keyframe_added for i in got] == [True, False, True, True,
+                                               False, True, False]
+    for a, b in zip(got, ref):
+        for f in dataclasses.fields(b):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if y is None:
+                assert x is None, f.name
+            else:
+                np.testing.assert_array_equal(x, y, err_msg=f.name)
+
+
+def test_odometry_draws_fn_and_device(monkeypatch):
+    """The RANSAC draws come from draws_fn(frames_processed) and the
+    registration runs on the Odometry's device."""
+    from tpuslam_torch.vo import odometry as O
+    from tpuslam_torch.vo.frame import Frame
+    seen = []
+
+    def fake(*args, **kw):
+        seen.append((kw["seed"], kw["device"], kw["draws"]))
+        return None, O.RegInfo()
+
+    monkeypatch.setattr(O, "compute_transform", fake)
+    o = O.Odometry(_camera(240, 320), device="cpu",
+                   draws_fn=lambda s: ("draws", s))
+    for i in range(3):
+        o.process(Frame(stamp=0.1 * i))
+    assert seen[0] == (1, "cpu", ("draws", 1))
+    assert all(s[2] == ("draws", s[0]) for s in seen)
+
+
+# --- the whole path -------------------------------------------------------
+
+def _camera(h, w, f=250.0, baseline=0.54):
+    from tpuslam_torch.io.synthetic import sequence_camera
+    return sequence_camera(w, h, f, baseline)
+
+
+def _cfg():
+    return dataclasses.replace(SlamConfig(), mapper=MapperConfig(
+        map_update=2, max_stm_size=2, loop_thr=0.05))
+
+
+def _recording(monkeypatch, module, frames, infos):
+    """Record the Frame and the OdomInfo of every frame of a run()."""
+    extract, process = module.extract_features, module.Odometry.process
+
+    def rec_frame(*args, **kw):
+        frames.append(extract(*args, **kw))
+        return frames[-1]
+
+    def rec_info(self, frame):
+        infos.append(process(self, frame))
+        return infos[-1]
+    monkeypatch.setattr(module, "extract_features", rec_frame)
+    monkeypatch.setattr(module.Odometry, "process", rec_info)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """tpuslam's and the port's run() over one sequence, each with its
+    frames; the port's plain-version counts; tpuslam's unspeckled
+    disparity per frame."""
+    from tpuslam.cli import slam_batch as JB
+    from tpuslam.io.synthetic import make_sequence
+    from tpuslam.kernels.stereo_bm import stereo_bm
+    from tpuslam_torch.cli import slam_batch as TB
+    from tpuslam_torch.kernels import _cuda
+    seq = str(tmp_path_factory.mktemp("batch_seq"))
+    make_sequence(seq, n_frames=6, width=320, height=240, f=250.0,
+                  baseline=0.54, speed=0.4, yaw_rate=0.002, seed=3)
+    jf, tf, ji, ti = [], [], [], []
+    with pytest.MonkeyPatch.context() as mp:
+        _recording(mp, JB, jf, ji)
+        _recording(mp, TB, tf, ti)
+        ref = JB.run(seq, _cfg(), quiet=True,
+                     out_dir=os.path.join(seq, "jax"))
+        _cuda.reset_counters()
+        got = TB.run(seq, convert.config_from_reference(_cfg()),
+                     quiet=True, out_dir=os.path.join(seq, "port"),
+                     device="cpu", draws_fn=_jax_draws)
+        plain = dict(_cuda.PLAIN_CALLS)
+    raw = [np.asarray(stereo_bm(f.image_left, f.image_right, _cfg().bm,
+                                with_speckle=False)) for f in jf]
+    return dict(seq=seq, ref=ref, got=got, jf=jf, tf=tf, ji=ji, ti=ti,
+                raw=raw, plain=plain)
+
+
+def test_frontend_matches_reference(runs):
+    bm = _cfg().bm
+    for j, t, raw in zip(runs["jf"], runs["tf"], runs["raw"]):
+        want = raw.copy()
+        cv2.filterSpeckles(want, (bm.min_disparity - 1) * 16,
+                           bm.speckle_window_size, bm.speckle_range)
+        np.testing.assert_array_equal(t.disparity, want)
+        diff = j.disparity != t.disparity
+        assert (j.disparity[diff] == -16).all()
+        assert (t.disparity[diff] != -16).all()
+        np.testing.assert_array_equal(t.kpts[:, :2], j.kpts[:, :2])
+        np.testing.assert_allclose(t.kpts[:, 2], j.kpts[:, 2], rtol=2e-6,
+                                   atol=1e-7)
+        assert t.desc.shape == j.desc.shape
+        flipped = np.unpackbits(t.desc ^ j.desc, axis=1).sum(axis=1)
+        assert (flipped <= 2).all() and (flipped > 0).mean() < 0.01
+        xs = t.kpts[:, 0].astype(int)
+        ys = t.kpts[:, 1].astype(int)
+        same = t.disparity[ys, xs] == j.disparity[ys, xs]
+        np.testing.assert_array_equal(np.isnan(t.kpts3d[same]),
+                                      np.isnan(j.kpts3d[same]))
+        np.testing.assert_allclose(t.kpts3d[same], j.kpts3d[same],
+                                   rtol=0, atol=1e-5)
+
+
+def test_trajectory_matches_reference(runs):
+    ref, got = runs["ref"], runs["got"]
+    assert got["n_frames"] == ref["n_frames"] == 6
+    np.testing.assert_allclose(got["vo_poses"][:, :3, 3],
+                               ref["vo_poses"][:, :3, 3], rtol=0, atol=1e-3)
+    assert sorted(got["optimized"]) == sorted(ref["optimized"])
+    for k in ref["optimized"]:
+        np.testing.assert_allclose(got["optimized"][k][:3, 3],
+                                   ref["optimized"][k][:3, 3], rtol=0,
+                                   atol=1e-3)
+    assert abs(got["ate_m"] - ref["ate_m"]) < 1e-3
+
+
+def test_odometry_flags_match_reference(runs):
+    """Per frame: lost and keyframe flags equal, inliers and matches
+    within 2; the Mapper's nodes have the same weights and links."""
+    ji, ti = runs["ji"], runs["ti"]
+    assert len(ti) == len(ji) == 6
+    assert [i.lost for i in ti] == [i.lost for i in ji]
+    assert not any(i.lost for i in ti)
+    assert [i.keyframe_added for i in ti] == [i.keyframe_added for i in ji]
+    for a, b in zip(ti, ji):
+        assert abs(a.num_inliers - b.num_inliers) <= 2
+        assert abs(a.num_matches - b.num_matches) <= 2
+    mj, mt = runs["ref"]["mapper"], runs["got"]["mapper"]
+    assert sorted(mj.nodes) == sorted(mt.nodes)
+    for nid in mj.nodes:
+        a, b = mj.nodes[nid], mt.nodes[nid]
+        assert a.weight == b.weight
+        assert sorted(k for k, _ in a.links.items()) == \
+            sorted(k for k, _ in b.links.items())
+
+
+def test_graph_and_outputs_match_reference(runs):
+    ref, got, seq = runs["ref"], runs["got"], runs["seq"]
+    for k in ("n_nodes", "n_links", "n_loop_closures"):
+        assert got[k] == ref[k], k
+    assert got["n_loop_closures"] >= 1
+    assert got["mapper"].loop_closures == ref["mapper"].loop_closures
+    for name in OUTPUTS:
+        a = os.path.join(seq, "jax", name)
+        b = os.path.join(seq, "port", name)
+        assert os.path.exists(b), name
+        if name.endswith(".csv"):
+            assert len(open(b).readlines()) == len(open(a).readlines())
+    assert open(os.path.join(seq, "port", "perf_time.csv")).readline() == \
+        open(os.path.join(seq, "jax", "perf_time.csv")).readline()
+    n_j, n_t = ref["n_occupied_voxels"], got["n_occupied_voxels"]
+    assert n_t > 0 and abs(n_t - n_j) <= 0.01 * n_j
+
+
+def test_port_took_the_plain_versions(runs):
+    """On the CPU the path ran every kernel's plain version: K1, K5, K2,
+    K3 once per frame, K6 per refined registration (VO and loop closure),
+    K4 never."""
+    plain = runs["plain"]
+    for k in ("stereo_bm", "lr_check", "gftt", "orb"):
+        assert plain[k] == 6, (k, plain)
+    assert plain["median"] == 0
+    assert plain["lm_refine"] >= 5 + runs["got"]["n_loop_closures"]
+
+
+@pytest.mark.parametrize("argv, match", [
+    (["-depth", "sgbm"], "A4"), (["-depth", "lk"], "A4"),
+    (["-resume", "state.npz"], "A5"), (["-checkpoint-every", "5"], "A5"),
+    (["-device-opt"], "A5")])
+def test_main_refuses_unported_options(tmp_path, argv, match):
+    from tpuslam_torch.cli.slam_batch import main
+    with pytest.raises(NotImplementedError, match=match):
+        main(["-dir", str(tmp_path)] + argv)
+    assert os.listdir(tmp_path) == []

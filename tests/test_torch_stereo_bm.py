@@ -86,7 +86,7 @@ def test_batch_dispatch_uses_plain_on_cpu(stereo_pair):
     lb = torch.as_tensor(np.stack([left, left[::-1].copy()]))
     rb = torch.as_tensor(np.stack([right, right[::-1].copy()]))
     _cuda.reset_counters()
-    disp = T.stereo_bm(lb, rb, StereoBMConfig(**SLICE))
+    disp = T.stereo_bm(lb, rb, StereoBMConfig(**SLICE), with_speckle=False)
     assert _cuda.PLAIN_CALLS["stereo_bm"] == 1
     assert _cuda.LAUNCHES["stereo_bm"] == 0
     np.testing.assert_array_equal(disp[1].numpy(),
@@ -137,7 +137,8 @@ def test_minsad_wider_than_int16():
     lt, rt = torch.as_tensor(left)[None], torch.as_tensor(right)[None]
     _cuda.reset_counters()
     np.testing.assert_array_equal(
-        T.stereo_bm(lt, rt, StereoBMConfig(**kw))[0].numpy(), ref)
+        T.stereo_bm(lt, rt, StereoBMConfig(**kw),
+                      with_speckle=False)[0].numpy(), ref)
     minsad = T.stereo_bm_plain(lt, rt, StereoBMConfig(**kw))[1]
     assert minsad.dtype == torch.int32 and int(minsad.max()) > 32767
     with pytest.raises(ValueError, match="uint16 cost limit"):
@@ -248,7 +249,8 @@ def test_default_config_bit_equal(stereo_pair, rows):
     ref = np.asarray(J.stereo_bm(left, right, JSlam().bm,
                                  with_speckle=False))
     got = T.stereo_bm(torch.as_tensor(left)[None],
-                      torch.as_tensor(right)[None], SlamConfig().bm)
+                      torch.as_tensor(right)[None], SlamConfig().bm,
+                      with_speckle=False)
     np.testing.assert_array_equal(got[0].numpy(), ref)
 
 

@@ -9,16 +9,22 @@ JAX, so it runs on a machine that has neither.
 Layer map:
   config      — the reference constants (copy of tpuslam.config)
   geometry    — SE3 transforms, stereo camera model, KITTI metric (copies)
-  io          — the synthetic box-world sequence, rendered in torch
+  io          — the synthetic box-world sequence, rendered in torch (in
+                memory or written as a KITTI-layout directory), the
+                KITTI-layout dataset reader and a grayscale PNG codec
   kernels     — StereoBM and its LR check, GFTT, ORB, matching,
                 EPnP-RANSAC and the LM refine; each hand-written CUDA
                 kernel sits beside its plain PyTorch version
   vo          — the fused chunk VO (front end batched over the chunk, then
-                the per-frame VO state machine) and registration
+                the per-frame VO state machine), registration and the
+                Odometry state machine of the per-frame path
   mapping     — the Mapper: dictionary, chunk dictionary, loop closure,
                 pose-graph data, BA windows
+  mapping3d   — the occupancy grid and its OctoMap .bt export
   optim       — the pose graph (host f64) and bundle adjustment
-  runtime     — the chunk driver (FastSlamPipeline)
+  runtime     — the chunk driver (FastSlamPipeline), the per-frame front
+                end and the named-span profiler
+  cli         — the batch SLAM app (slam_batch)
   csrc        — the CUDA C++ sources, built at first use by nvcc
 """
 

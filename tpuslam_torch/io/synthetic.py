@@ -1,22 +1,26 @@
 """Synthetic stereo sequence, rendered in torch on a given device.
 
 Counterpart of tpuslam/io/synthetic.py (`_hash01`, `_value_noise`,
-`_spots`, `_texture`, `_render_box_device`, `BoxWorld`, and the default
-forward-with-yaw trajectory of `make_sequence`).  An analytic ray tracer
-renders the inside of a textured box sized around the trajectory; the
-texture is multi-octave hash value noise with blob landmarks and an
-analytic mip, evaluated at the world hit point and 2x2 supersampled.
+`_spots`, `_texture`, `_render_box_device`, `BoxWorld`, the default
+forward-with-yaw trajectory of `make_sequence` and
+`out_and_back_trajectory`).  An analytic ray tracer renders the inside of
+a textured box sized around the trajectory; the texture is multi-octave
+hash value noise with blob landmarks and an analytic mip, evaluated at the
+world hit point and 2x2 supersampled.
 
-Unlike tpuslam, nothing is written to disk: `make_sequence` returns the
-frames in memory, with the timestamps and ground truth the KITTI-layout
-files would have given (the same text round trip).  The procedural
-texture only: the photo-texture option is not ported.
+`make_sequence` returns the frames in memory, with the timestamps and
+ground truth the KITTI-layout files would have given (the same text round
+trip); `write_sequence` writes those files, as tpuslam's make_sequence
+does (images as PNGs through io/png.py).  The procedural texture only: the
+photo-texture option is not ported.
 
 `pnp_scene` makes the known-pose refinement inputs that the card-only
 tests and chip_smoke.py hold the LM-refine kernel to.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -207,12 +211,32 @@ def _robot_gt(pose_cam: np.ndarray) -> np.ndarray:
     return T.compose(T.compose(_P_CONJ, m), T.inverse(_P_CONJ))
 
 
+def out_and_back_trajectory(n_forward: int, speed: float = 0.5):
+    """Forward motion, one apex frame, then backing up along the same
+    path (viewing direction unchanged so the start-of-corridor world stays
+    visible) — revisits early poses exactly, for loop-closure testing.
+    2*n_forward+1 frames."""
+    poses = []
+    pose = np.eye(4)
+    for _ in range(n_forward):
+        poses.append(pose.copy())
+        pose = pose.copy()
+        pose[2, 3] += speed
+    poses.append(pose.copy())  # apex
+    for _ in range(n_forward):
+        pose = pose.copy()
+        pose[2, 3] -= speed
+        poses.append(pose.copy())
+    return poses
+
+
 def make_sequence(n_frames: int = 20, width: int = 640, height: int = 480,
                   f: float = 500.0, baseline: float = 0.54,
                   speed: float = 0.5, yaw_rate: float = 0.004,
-                  seed: int = 0, device="cuda"):
+                  seed: int = 0, device="cuda", poses=None):
     """Render a synthetic stereo sequence on `device` (the card unless the
-    caller asks for the CPU).
+    caller asks for the CPU).  `poses` (4x4 cam-to-world, optical frame)
+    replaces the forward-with-yaw trajectory; n_frames is then theirs.
 
     Returns (left (N, H, W) uint8, right (N, H, W) uint8, stamps list of
     float, gt_poses (N, 4, 4) float32 robot-frame numpy array).  Frames,
@@ -220,7 +244,11 @@ def make_sequence(n_frames: int = 20, width: int = 640, height: int = 480,
     writes and tpuslam.io.dataset reads back, up to the renderer's
     transcendental ulps."""
     cx, cy = (width - 1) / 2.0, (height - 1) / 2.0
-    poses = forward_trajectory(n_frames, speed, yaw_rate)
+    if poses is None:
+        poses = forward_trajectory(n_frames, speed, yaw_rate)
+    else:
+        poses = [np.asarray(p, np.float64) for p in poses]
+        n_frames = len(poses)
     world = BoxWorld(poses, seed=seed)
     right_offset = np.eye(4)
     right_offset[0, 3] = baseline
@@ -231,6 +259,46 @@ def make_sequence(n_frames: int = 20, width: int = 640, height: int = 480,
     stamps = [float(f"{i * 0.1:.6e}") for i in range(n_frames)]
     gt = np.stack([_robot_gt(p) for p in poses])
     return left, right, stamps, gt
+
+
+def write_sequence(out_dir: str, n_frames: int = 20, width: int = 640,
+                   height: int = 480, f: float = 500.0,
+                   baseline: float = 0.54, speed: float = 0.5,
+                   yaw_rate: float = 0.004, seed: int = 0, poses=None,
+                   device="cuda") -> str:
+    """Render a sequence on `device` (the card unless the caller asks for
+    the CPU) and write it as a KITTI-layout directory, as
+    tpuslam.io.synthetic.make_sequence(out_dir, ...) does: image_0/ and
+    image_1/ PNGs, calib.txt, times.txt and poses.txt (cam0-to-world 3x4
+    rows) in the same text formats.  Returns out_dir."""
+    from .png import write_png
+    if poses is None:
+        poses = forward_trajectory(n_frames, speed, yaw_rate)
+    poses = [np.asarray(p, np.float64) for p in poses]
+    left, right, _, _ = make_sequence(width=width, height=height, f=f,
+                                      baseline=baseline, seed=seed,
+                                      device=device, poses=poses)
+    for sub, imgs in (("image_0", left), ("image_1", right)):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+        for i, img in enumerate(imgs.cpu().numpy()):
+            write_png(os.path.join(out_dir, sub, f"{i:06d}.png"), img)
+
+    cx, cy = (width - 1) / 2.0, (height - 1) / 2.0
+    with open(os.path.join(out_dir, "calib.txt"), "w") as fh:
+        p0 = [f, 0.0, cx, 0.0, 0.0, f, cy, 0.0, 0.0, 0.0, 1.0, 0.0]
+        p1 = list(p0)
+        p1[3] = -f * baseline
+        fh.write("P0: " + " ".join(f"{v:.12e}" for v in p0) + "\n")
+        fh.write("P1: " + " ".join(f"{v:.12e}" for v in p1) + "\n")
+
+    with open(os.path.join(out_dir, "times.txt"), "w") as fh:
+        for i in range(len(poses)):
+            fh.write(f"{i * 0.1:.6e}\n")
+
+    with open(os.path.join(out_dir, "poses.txt"), "w") as fh:
+        for p in poses:
+            fh.write(" ".join(f"{v:.9e}" for v in p[:3].reshape(-1)) + "\n")
+    return out_dir
 
 
 def pnp_scene(rng: np.random.Generator, n: int, K: np.ndarray, rvec0=None,

@@ -4,12 +4,15 @@ top-k and the greedy min-distance NMS.
 
 Counterpart of tpuslam/kernels/gftt.py (`gftt_response`, `local_max_3x3`,
 `_two_stage_top_k`, `gftt_candidates`, `select_from_candidates_device`)
-and of the Pallas kernel gftt.py:gftt_response_dil_pallas.  Every function
-takes a leading frame axis (B, H, W).
+and of the Pallas kernel gftt.py:gftt_response_dil_pallas.  Every torch
+function takes a leading frame axis (B, H, W).  The per-frame path's host
+NMS (`select_from_candidates`, `select_keypoints`, `_grid_suppress`) is
+numpy, copied from tpuslam/kernels/gftt.py.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -227,3 +230,109 @@ def select_from_candidates_device(vals: torch.Tensor, flat_idx: torch.Tensor,
                         vals.gather(1, order)], dim=-1)
     kpts = torch.where(valid[..., None], kpts, 0.0)
     return kpts, valid, n_acc
+
+
+# --- the per-frame path's host NMS (copied from tpuslam/kernels/gftt.py) ---
+
+def select_from_candidates(vals: np.ndarray, flat_idx: np.ndarray,
+                           width: int,
+                           max_features: int = 1500,
+                           min_distance: float = 7.0) -> np.ndarray:
+    """Host half of the device-candidate path: identical sort order and
+    grid min-distance suppression as select_keypoints (the candidates
+    arrive already thresholded, local-max'd and sorted)."""
+    keep = np.isfinite(vals)
+    vals = vals[keep]
+    flat_idx = flat_idx[keep]
+    ys = (flat_idx // width).astype(np.int64)
+    xs = (flat_idx % width).astype(np.int64)
+    return _grid_suppress(xs, ys, vals, width, max_features, min_distance)
+
+
+def select_keypoints(eig: np.ndarray,
+                     max_features: int = 1500,
+                     quality_level: float = 0.01,
+                     min_distance: float = 7.0,
+                     use_local_max: bool = True,
+                     max_value: float | None = None) -> np.ndarray:
+    """Host-side candidate selection.
+
+    Returns (N, 3) float32 array of (x, y, response), N <= max_features.
+
+    With use_local_max=True this reproduces cv::goodFeaturesToTrack
+    (threshold -> 3x3 dilation non-max -> sort -> grid suppression); with
+    False it reproduces the reference's FPGA path `generateKeypoints2`
+    (GFTT.cpp:41-170) operating on the raw thresholded map.
+
+    `max_value` overrides the map maximum (the FPGA per-frame max-eigenvalue
+    register semantics, FPGA.cpp:291-297).
+    """
+    eig = np.asarray(eig)
+    h, w = eig.shape
+    maxv = float(eig.max()) if max_value is None else float(max_value)
+    thr = maxv * quality_level
+
+    if use_local_max:
+        # threshold-to-zero then 3x3 local max, interior only (1..size-2)
+        z = np.where(eig > thr, eig, 0.0)
+        from scipy.ndimage import maximum_filter
+        dil = maximum_filter(z, size=3, mode="constant", cval=0.0)
+        mask = (z != 0) & (z == dil)
+        mask[0, :] = mask[-1, :] = False
+        mask[:, 0] = mask[:, -1] = False
+        ys, xs = np.nonzero(mask)
+        vals = z[ys, xs]
+    else:
+        # generateKeypoints2: plain threshold (>=), interior only
+        mask = eig >= thr
+        mask[0, :] = mask[-1, :] = False
+        mask[:, 0] = mask[:, -1] = False
+        ys, xs = np.nonzero(mask)
+        vals = eig[ys, xs]
+
+    # descending sort; ties resolved by row-major position (the reference's
+    # greaterThanPtr pointer comparison, GFTT.cpp:31-39)
+    flat = ys.astype(np.int64) * w + xs
+    order = np.lexsort((flat, -vals))
+    ys, xs, vals = ys[order], xs[order], vals[order]
+    return _grid_suppress(xs, ys, vals, w, max_features, min_distance)
+
+
+def _grid_suppress(xs, ys, vals, w: int, max_features: int,
+                   min_distance: float) -> np.ndarray:
+    """Grid-bucket min-distance suppression over candidates already in
+    descending-response order (GFTT.cpp:78-141)."""
+    if min_distance < 1:
+        out = [(float(x), float(y), float(v))
+               for x, y, v in zip(xs[:max_features], ys[:max_features],
+                                  vals[:max_features])]
+        return np.array(out, dtype=np.float32).reshape(-1, 3)
+
+    cell = int(round(min_distance))
+    gw = (w + cell - 1) // cell
+    gh = (int(ys.max()) // cell + 1) if len(ys) else 1
+    grid: list[list[tuple[float, float]]] = [[] for _ in range(gw * gh)]
+    md2 = min_distance * min_distance
+    out = []
+    for x, y, v in zip(xs, ys, vals):
+        xc, yc = int(x) // cell, int(y) // cell
+        good = True
+        for yy in range(max(0, yc - 1), min(gh - 1, yc + 1) + 1):
+            for xx in range(max(0, xc - 1), min(gw - 1, xc + 1) + 1):
+                for (px, py) in grid[yy * gw + xx]:
+                    dx = float(x) - px
+                    dy = float(y) - py
+                    if dx * dx + dy * dy < md2:
+                        good = False
+                        break
+                if not good:
+                    break
+            if not good:
+                break
+        if good:
+            grid[yc * gw + xc].append((float(x), float(y)))
+            out.append((float(x), float(y), float(v)))
+            if len(out) == max_features:
+                break
+    return np.array(out, dtype=np.float32).reshape(-1, 3)
+

@@ -212,3 +212,38 @@ def orb_descriptors_const_angle(image: torch.Tensor, kpts_xy: torch.Tensor,
     CPU tensor.  Takes the RAW image (the blur is part of the kernel)."""
     fn = orb_descriptors_cuda if image.is_cuda else orb_descriptors_plain
     return fn(image, kpts_xy, valid, angle_deg)
+
+
+def run_by_image_border(kpts: np.ndarray, img_shape, border: int = 19):
+    """Drop keypoints within `border` px of the image edge
+    (CvORB.cpp runByImageBorder; edgeThreshold 19).
+
+    OpenCV's Rect(border, border, w-2*border, h-2*border).contains uses
+    half-open [border, w-border): keep border <= x < w - border.
+    """
+    h, w = img_shape
+    x, y = kpts[:, 0], kpts[:, 1]
+    keep = ((x >= border) & (x < w - border) &
+            (y >= border) & (y < h - border))
+    return kpts[keep], keep
+
+
+def orb_descriptors(image: torch.Tensor, kpts_xy: np.ndarray,
+                    max_kpts: int = 1536):
+    """The per-frame path's ORB (tpuslam/kernels/orb.py:orb_descriptors):
+    descriptors of one RAW (H, W) uint8 image at border-filtered (N, 2)
+    keypoints (angle -1, as GFTT gives them), padded to `max_kpts`; kernel
+    K3 for a CUDA image, the plain version for a CPU one.  Returns (desc
+    (max_kpts, 32) uint8 on the image's device, valid (max_kpts,) bool)."""
+    n = len(kpts_xy)
+    assert n <= max_kpts, (n, max_kpts)
+    xy = np.zeros((max_kpts, 2), np.float32)
+    val = np.zeros((max_kpts,), bool)
+    if n:
+        xy[:n] = np.asarray(kpts_xy, np.float32)[:, :2]
+    val[:n] = True
+    dev = image.device
+    desc = orb_descriptors_const_angle(
+        image[None], torch.as_tensor(xy, device=dev)[None],
+        torch.as_tensor(val, device=dev)[None])
+    return desc[0], val

@@ -14,11 +14,17 @@ left-right check (`_lr_consistency`, cv::validateDisparity) is the twin
 of tpuslam/kernels/stereo_bm.py:_lr_consistency and of the Pallas kernel
 tpuslam/kernels/stereo_bm_pallas.py:_lr_kernel.
 
-Not ported yet: the speckle filter (ROADMAP A4).
+The speckle filter (`speckle_filter_with_flag`, `speckle_filter_batch`,
+the twins of tpuslam/kernels/stereo_bm.py's) labels connected components
+by min-label hooking (a scatter-min over the edges) with pointer jumping
+until every edge joins equal labels, where the reference runs a fixed 16
+rounds for the TPU's sake; it is plain PyTorch on both devices (the
+reference computes it outside any Pallas kernel).
 """
 
 from __future__ import annotations
 
+from collections import deque
 
 import torch
 
@@ -396,19 +402,118 @@ def lr_check(disp, minsad, cfg: StereoBMConfig = StereoBMConfig()):
     return fn(disp, minsad, cfg)
 
 
-def stereo_bm(left: torch.Tensor, right: torch.Tensor,
-              cfg: StereoBMConfig = StereoBMConfig()) -> torch.Tensor:
-    """(B, H, W) uint8 pairs -> (B, H, W) int16 x16 disparity, with the
-    left-right check when `disp12_max_diff >= 0` and without speckle
-    filtering (not ported yet: ROADMAP A4).
+# hook rounds of the speckle filter between two convergence checks (each
+# check reads one flag on the host)
+SPECKLE_CHECK_EVERY = 2
+# the rounds that each speckle call ran before its check found the labels
+# converged, newest last
+SPECKLE_ROUNDS: deque = deque(maxlen=4096)
 
-    A CUDA tensor goes to kernels K1 and K5, a CPU tensor to the plain
-    versions."""
+
+def _speckle_edges(d: torch.Tensor, max_diff: int, filtered: int):
+    """The 4-connectivity of (B, H, W) int32 disparity: (right, down), True
+    where a pixel and its right (lower) neighbour both differ from
+    `filtered` and from each other by at most `max_diff`."""
+    valid = d != filtered
+    right = valid[..., :, 1:] & valid[..., :, :-1] & \
+        ((d[..., :, 1:] - d[..., :, :-1]).abs() <= max_diff)
+    down = valid[..., 1:, :] & valid[..., :-1, :] & \
+        ((d[..., 1:, :] - d[..., :-1, :]).abs() <= max_diff)
+    return right, down
+
+
+def speckle_labels(d: torch.Tensor, max_diff: int, filtered: int):
+    """Connected components of (B, H, W) int32 disparity: every pixel's
+    label becomes the least flat index (over the whole batch) of its
+    component.  A round hooks, for every edge (u, v), the label of u's
+    label to v's label if that is less, and the other way round (a
+    scatter-min), then jumps each pointer twice (label of the label).  A
+    label is never above its own index and always one of its component's,
+    so where every edge joins equal labels each label is its component's
+    least index; that is checked every SPECKLE_CHECK_EVERY rounds.  No
+    edge crosses frames, so neither does a label.  Returns (labels int64,
+    rounds run)."""
+    right, down = _speckle_edges(d, max_diff, filtered)
+    idx = torch.arange(d.numel(), device=d.device).view(d.shape)
+    u = torch.cat([idx[..., :, :-1][right], idx[..., :-1, :][down]])
+    v = torch.cat([idx[..., :, 1:][right], idx[..., 1:, :][down]])
+    labels = idx.view(-1).clone()
+    rounds = 0
+    while True:
+        for _ in range(SPECKLE_CHECK_EVERY):
+            lu, lv = labels[u], labels[v]
+            labels.scatter_reduce_(0, lu, lv, "amin")
+            labels.scatter_reduce_(0, lv, lu, "amin")
+            labels = labels[labels]
+            labels = labels[labels]
+        rounds += SPECKLE_CHECK_EVERY
+        if torch.equal(labels[u], labels[v]):
+            return labels.view(d.shape), rounds
+
+
+def speckle_filter_batch(disp: torch.Tensor, max_size: int, max_diff: int,
+                         filtered: int):
+    """cv::filterSpeckles over a (B, H, W) batch: 4-connected components
+    whose neighbours differ by at most `max_diff` (raw disparity units, as
+    OpenCV's StereoBM passes speckleRange), pixels equal to `filtered`
+    left out of every component; components of at most `max_size` pixels
+    become `filtered`.  Returns (filtered disparity of disp's dtype,
+    converged), converged always True: the labels run to their fixpoint.
+    SPECKLE_ROUNDS gets the rounds run."""
+    labels, rounds = speckle_labels(disp.to(torch.int32), max_diff,
+                                    filtered)
+    SPECKLE_ROUNDS.append(rounds)
+    flat = labels.view(-1)
+    size = torch.bincount(flat, minlength=flat.numel())[flat]
+    out = torch.where((size <= max_size).view(disp.shape),
+                      torch.tensor(filtered, dtype=disp.dtype,
+                                   device=disp.device), disp)
+    return out, True
+
+
+def speckle_filter_with_flag(disp: torch.Tensor, max_size: int,
+                             max_diff: int, filtered: int):
+    """speckle_filter_batch of one (H, W) map -> (filtered map,
+    converged)."""
+    out, converged = speckle_filter_batch(disp[None], max_size, max_diff,
+                                          filtered)
+    return out[0], converged
+
+
+def speckle_bm(disp: torch.Tensor,
+               cfg: StereoBMConfig = StereoBMConfig()) -> torch.Tensor:
+    """StereoBM's speckle pass over (B, H, W) disparity in `cfg`'s window
+    and range (none where the window is 0 or the range negative)."""
+    if cfg.speckle_window_size <= 0 or cfg.speckle_range < 0:
+        return disp
+    return speckle_filter_batch(disp, cfg.speckle_window_size,
+                                cfg.speckle_range,
+                                (cfg.min_disparity - 1) * FILTERED_SCALE)[0]
+
+
+def stereo_bm_lr(left: torch.Tensor, right: torch.Tensor,
+                 cfg: StereoBMConfig = StereoBMConfig()) -> torch.Tensor:
+    """StereoBM and its left-right check (when `disp12_max_diff >= 0`),
+    without the speckle pass: kernels K1 and K5 for a CUDA tensor, the
+    plain versions for a CPU tensor.  Nothing here waits for the card."""
     fn = stereo_bm_cuda if left.is_cuda else stereo_bm_plain
     disp, minsad = fn(left, right, cfg)
     if cfg.disp12_max_diff >= 0:
         disp = lr_check(disp, minsad, cfg)
     return disp
+
+
+def stereo_bm(left: torch.Tensor, right: torch.Tensor,
+              cfg: StereoBMConfig = StereoBMConfig(),
+              with_speckle: bool = True) -> torch.Tensor:
+    """(B, H, W) uint8 pairs -> (B, H, W) int16 x16 disparity, with the
+    left-right check when `disp12_max_diff >= 0` and, with `with_speckle`,
+    the speckle pass (`speckle_bm`), as tpuslam's stereo_bm.
+
+    A CUDA tensor goes to kernels K1 and K5, a CPU tensor to the plain
+    versions."""
+    disp = stereo_bm_lr(left, right, cfg)
+    return speckle_bm(disp, cfg) if with_speckle else disp
 
 
 def stereo_bm_phase_occupancy(phase: str):

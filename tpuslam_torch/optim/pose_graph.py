@@ -2,7 +2,7 @@
 tpuslam/optim/pose_graph.py (numpy/scipy, f64), copied.
 
 The device backends (backend="device" / "device-dense", tpuslam's
-optim/device.py) are not ported yet (ROADMAP A7) and raise
+optim/device.py) are not ported yet (ROADMAP A5) and raise
 NotImplementedError.
 
 Exact behavioral twin of the reference optimizer
@@ -365,7 +365,7 @@ def _build(poses: dict, links: MultiMap,
 def _host_only(backend: str) -> None:
     if backend != "host":
         raise NotImplementedError(
-            f"pose-graph backend {backend!r} is not ported yet (ROADMAP A7: "
+            f"pose-graph backend {backend!r} is not ported yet (ROADMAP A5: "
             "optim/device.py); use backend='host'")
 
 

@@ -1,1 +1,2 @@
-"""Runtime: the fused-VO chunk driver."""
+"""Runtime: the fused-VO chunk driver, the per-frame front end and the
+named-span profiler."""

@@ -10,7 +10,7 @@ collected.  With a Mapper, the chunk's dictionary update
 (mapping/chunk_dict.py) is queued on the device right after the VO chunk,
 and the Mapper's torch work runs on the pipeline's device.
 
-Not ported here: the ingest loop (ROADMAP A5), and the XLA compile cache
+Not ported here: the ingest loop (ROADMAP A3), and the XLA compile cache
 and AOT artifacts, which exist only for XLA.
 """
 

@@ -14,9 +14,11 @@ frame runs but leaves the carry unchanged.
 The VO step never reads a tensor on the host (no .item(), no bool() of a
 tensor), so the frames of a chunk queue on the device without a sync.
 
-Not ported yet, and refused with NotImplementedError: fused speckle
-(ROADMAP A4) and depth methods other than "bm" (A6).  The factories build
-on the card unless the caller asks for the CPU (device="cpu").
+With `fused_speckle` the chunk's disparity goes through the batch speckle
+filter, as tpuslam's batched_frontend filters it.  Not ported yet, and
+refused with NotImplementedError: depth methods other than "bm" (ROADMAP
+A4).  The factories build on the card unless the caller asks for the CPU
+(device="cpu").
 
 RANSAC draws: tpuslam seeds each frame's hypotheses with
 jax.random.PRNGKey(frame index); here each frame takes its (n_hyp, 6)
@@ -46,10 +48,7 @@ def check_supported(cfg: SlamConfig) -> None:
     if cfg.depth_method != "bm":
         raise NotImplementedError(
             f"depth_method={cfg.depth_method!r}: only 'bm' is ported "
-            "(ROADMAP A6)")
-    if cfg.fused_speckle:
-        raise NotImplementedError(
-            "fused_speckle=True is not ported yet: ROADMAP A4")
+            "(ROADMAP A4)")
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +248,8 @@ def make_frontend_fn(camera: StereoCameraModel, cfg: SlamConfig,
 
     def frontend(lefts, rights):
         B = lefts.shape[0]
-        disp = stereo_bm(lefts, rights, cfg.bm)
+        disp = stereo_bm(lefts, rights, cfg.bm,
+                         with_speckle=cfg.fused_speckle)
         kpts, valid, n_k = detect_keypoints(lefts, cfg, shapes)
 
         # GFTT keypoints carry angle -1 (GFTT.cpp octave-0 path)
