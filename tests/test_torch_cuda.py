@@ -442,7 +442,7 @@ def test_default_config_chunk_runs_all_kernels():
 def test_speckle_card_equals_cpu(batch):
     """The speckle filter on the card equals the same function on the CPU,
     bit for bit, on StereoBM disparity of rendered 1241x376 frames: one
-    frame (speckle_filter_with_flag) and a 30-frame batch."""
+    frame (speckle_filter) and a 30-frame batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from tpuslam_torch.config import StereoBMConfig
@@ -454,12 +454,12 @@ def test_speckle_card_equals_cpu(batch):
     disp = BM.stereo_bm_lr(lefts, rights, bm)
     args = (bm.speckle_window_size, bm.speckle_range, -16)
     if batch == 1:
-        got, conv = BM.speckle_filter_with_flag(disp[0], *args)
-        want, _ = BM.speckle_filter_with_flag(disp[0].cpu(), *args)
+        got = BM.speckle_filter(disp[0], *args)
+        want = BM.speckle_filter(disp[0].cpu(), *args)
     else:
-        got, conv = BM.speckle_filter_batch(disp, *args)
-        want, _ = BM.speckle_filter_batch(disp.cpu(), *args)
-    assert conv and got.is_cuda
+        got = BM.speckle_filter_batch(disp, *args)
+        want = BM.speckle_filter_batch(disp.cpu(), *args)
+    assert got.is_cuda
     assert torch.equal(got.cpu(), want)
     assert int((got != disp[0 if batch == 1 else slice(None)]).sum()) > 0
 

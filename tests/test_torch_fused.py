@@ -158,17 +158,25 @@ def test_staged_sync_and_async_identical(fwd_seq, port_run):
 
 @pytest.mark.parametrize("case", ["speckle", "sgbm"])
 def test_unported_paths_raise(fwd_seq, case):
+    """SGBM is not ported and raises.  Fused speckle, refused until it was
+    ported for StereoBM, now builds a pipeline that runs a chunk on the
+    CPU through the batch speckle filter."""
     from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    from tpuslam_torch.kernels import stereo_bm as BM
     from tpuslam_torch import config as C
     cfg = convert.config_from_reference(_default_cfg())
     cam = convert.camera_from_reference(_camera(fwd_seq))
-    # fused speckle is ported for StereoBM; SGBM's (x16 range) is not
-    bad = {"speckle": cfg.replace(fused_speckle=True,
-                                  depth_method=C.DepthMethod.SGBM),
-           "sgbm": cfg.replace(depth_method=C.DepthMethod.SGBM)}
-    with pytest.raises(NotImplementedError):
-        FastSlamPipeline(cam, bad[case], chunk=6, capacity=384,
-                         device="cpu")
+    if case == "sgbm":
+        with pytest.raises(NotImplementedError, match="A4"):
+            FastSlamPipeline(cam, cfg.replace(
+                depth_method=C.DepthMethod.SGBM), chunk=6, capacity=384,
+                device="cpu")
+        return
+    pipe = _port_pipe(fwd_seq, _default_cfg().replace(fused_speckle=True))
+    BM.SPECKLE_ROUNDS.clear()
+    infos = pipe.run(fwd_seq[:6])
+    assert len(infos) == 6 and len(BM.SPECKLE_ROUNDS) == 1
+    assert not any(i.lost for i in infos[1:])
 
 
 @pytest.fixture(scope="module")

@@ -2,8 +2,8 @@
 
 tpuslam runs a fixed 16 rounds of min-label hooking with pointer jumping
 (its `converged` flag says whether one more hook would change a label);
-the port hooks labels until nothing changes, so it is cv::filterSpeckles
-exactly on every input, and equals tpuslam bit for bit wherever tpuslam's
+the port hooks labels until nothing changes (so it has no such flag) and
+is cv::filterSpeckles exactly on every input, and equals tpuslam bit for bit wherever tpuslam's
 flag is True.  Where tpuslam's flag is False a component still carries
 several labels, each counted as a component of its own, so tpuslam can
 only filter more: every pixel where the two differ is `filtered` in
@@ -38,9 +38,8 @@ def _cv2(d, max_size=MAX_SIZE, max_diff=MAX_DIFF, filtered=FILTERED):
 
 
 def _port(d, max_size=MAX_SIZE, max_diff=MAX_DIFF):
-    out, conv = T.speckle_filter_with_flag(torch.as_tensor(d), max_size,
-                                           max_diff, FILTERED)
-    return out.numpy(), conv
+    return T.speckle_filter(torch.as_tensor(d), max_size, max_diff,
+                            FILTERED).numpy()
 
 
 def _assert_only_more_filtered(ref, got):
@@ -84,11 +83,11 @@ def test_fixture_pair(fixture_disp):
     is cv2.filterSpeckles; tpuslam's 16 rounds do not converge there, and
     where it differs it filtered more."""
     raw, _ = fixture_disp
-    got, conv = _port(raw.astype(np.int32))
+    got = _port(raw.astype(np.int32))
     ref, ref_conv = _jax_speckle(jnp.asarray(raw, jnp.int32), MAX_SIZE,
                                  MAX_DIFF, FILTERED)
     ref = np.asarray(ref)
-    assert conv and not bool(ref_conv)
+    assert not bool(ref_conv)
     np.testing.assert_array_equal(got, _cv2(raw))
     _assert_only_more_filtered(ref, got)
     assert 0 < (ref != got).sum() < 200
@@ -101,11 +100,10 @@ def test_random_blob_maps(shape, cell, seed):
     """Bit-equal to tpuslam wherever tpuslam's flag is True (both kinds
     occur among these maps), to cv2.filterSpeckles always."""
     d = _blobs(seed, *shape, cell)
-    got, conv = _port(d)
+    got = _port(d)
     ref, ref_conv = _jax_speckle(jnp.asarray(d), MAX_SIZE, MAX_DIFF,
                                  FILTERED)
     ref = np.asarray(ref)
-    assert conv
     np.testing.assert_array_equal(got, _cv2(d))
     if bool(ref_conv):
         np.testing.assert_array_equal(got, ref)
@@ -116,8 +114,8 @@ def test_random_blob_maps(shape, cell, seed):
 @pytest.mark.parametrize("vertical", [False, True])
 def test_serpentine_component(vertical):
     """One winding component of 8,256 pixels: tpuslam's 16 rounds do not
-    label it whole (flag False), the port does (reports convergence) and
-    equals cv2.filterSpeckles, keeping it under a window below its size
+    label it whole (flag False), the port does (its labels ran to their
+    fixpoint, a whole number of checks) and equals cv2.filterSpeckles, keeping it under a window below its size
     and removing it under one above."""
     d = _serpentine(128, 128)
     if vertical:
@@ -126,8 +124,8 @@ def test_serpentine_component(vertical):
     _, ref_conv = _jax_speckle(jnp.asarray(d), n - 1, 0, FILTERED)
     assert not bool(ref_conv)
     for max_size in (n - 1, n):
-        got, conv = _port(d, max_size, 0)
-        assert conv
+        got = _port(d, max_size, 0)
+        assert T.SPECKLE_ROUNDS[-1] % T.SPECKLE_CHECK_EVERY == 0
         np.testing.assert_array_equal(got, _cv2(d, max_size, 0))
         assert (got == FILTERED).all() == (max_size == n)
 
@@ -137,12 +135,10 @@ def test_batch_version():
     each frame (labels never cross frames), and tpuslam's
     speckle_filter_batch where that converged."""
     batch = np.stack([_blobs(s, 48, 64, 6) for s in range(3)])
-    got, conv = T.speckle_filter_batch(torch.as_tensor(batch), MAX_SIZE,
-                                       MAX_DIFF, FILTERED)
-    got = got.numpy()
-    assert conv
+    got = T.speckle_filter_batch(torch.as_tensor(batch), MAX_SIZE,
+                                 MAX_DIFF, FILTERED).numpy()
     for f in range(3):
-        np.testing.assert_array_equal(got[f], _port(batch[f])[0])
+        np.testing.assert_array_equal(got[f], _port(batch[f]))
     ref, ref_conv = jax.jit(J.speckle_filter_batch,
                             static_argnums=(1, 2, 3))(
         jnp.asarray(batch), MAX_SIZE, MAX_DIFF, FILTERED)

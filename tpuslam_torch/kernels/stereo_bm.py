@@ -14,12 +14,13 @@ left-right check (`_lr_consistency`, cv::validateDisparity) is the twin
 of tpuslam/kernels/stereo_bm.py:_lr_consistency and of the Pallas kernel
 tpuslam/kernels/stereo_bm_pallas.py:_lr_kernel.
 
-The speckle filter (`speckle_filter_with_flag`, `speckle_filter_batch`,
-the twins of tpuslam/kernels/stereo_bm.py's) labels connected components
-by min-label hooking (a scatter-min over the edges) with pointer jumping
-until every edge joins equal labels, where the reference runs a fixed 16
-rounds for the TPU's sake; it is plain PyTorch on both devices (the
-reference computes it outside any Pallas kernel).
+The speckle filter (`speckle_filter`, `speckle_filter_batch`, the twins
+of tpuslam/kernels/stereo_bm.py's speckle_filter_with_flag and
+speckle_filter_batch) labels connected components by min-label hooking (a
+scatter-min over the edges) with pointer jumping until every edge joins
+equal labels, where the reference runs a fixed 16 rounds for the TPU's
+sake and returns whether they converged; it is plain PyTorch on both
+devices (the reference computes it outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -452,32 +453,30 @@ def speckle_labels(d: torch.Tensor, max_diff: int, filtered: int):
 
 
 def speckle_filter_batch(disp: torch.Tensor, max_size: int, max_diff: int,
-                         filtered: int):
+                         filtered: int) -> torch.Tensor:
     """cv::filterSpeckles over a (B, H, W) batch: 4-connected components
     whose neighbours differ by at most `max_diff` (raw disparity units, as
     OpenCV's StereoBM passes speckleRange), pixels equal to `filtered`
     left out of every component; components of at most `max_size` pixels
-    become `filtered`.  Returns (filtered disparity of disp's dtype,
-    converged), converged always True: the labels run to their fixpoint.
-    SPECKLE_ROUNDS gets the rounds run."""
+    become `filtered`.  Returns the filtered disparity, of disp's dtype.
+    The labels run to their fixpoint, so unlike tpuslam's fixed 16 rounds
+    there is no convergence flag; SPECKLE_ROUNDS gets the rounds run."""
     labels, rounds = speckle_labels(disp.to(torch.int32), max_diff,
                                     filtered)
     SPECKLE_ROUNDS.append(rounds)
     flat = labels.view(-1)
     size = torch.bincount(flat, minlength=flat.numel())[flat]
-    out = torch.where((size <= max_size).view(disp.shape),
-                      torch.tensor(filtered, dtype=disp.dtype,
-                                   device=disp.device), disp)
-    return out, True
+    return torch.where((size <= max_size).view(disp.shape),
+                       torch.tensor(filtered, dtype=disp.dtype,
+                                    device=disp.device), disp)
 
 
-def speckle_filter_with_flag(disp: torch.Tensor, max_size: int,
-                             max_diff: int, filtered: int):
-    """speckle_filter_batch of one (H, W) map -> (filtered map,
-    converged)."""
-    out, converged = speckle_filter_batch(disp[None], max_size, max_diff,
-                                          filtered)
-    return out[0], converged
+def speckle_filter(disp: torch.Tensor, max_size: int, max_diff: int,
+                   filtered: int) -> torch.Tensor:
+    """speckle_filter_batch of one (H, W) map (tpuslam's
+    speckle_filter_with_flag, without its flag)."""
+    return speckle_filter_batch(disp[None], max_size, max_diff,
+                                filtered)[0]
 
 
 def speckle_bm(disp: torch.Tensor,
@@ -488,7 +487,7 @@ def speckle_bm(disp: torch.Tensor,
         return disp
     return speckle_filter_batch(disp, cfg.speckle_window_size,
                                 cfg.speckle_range,
-                                (cfg.min_disparity - 1) * FILTERED_SCALE)[0]
+                                (cfg.min_disparity - 1) * FILTERED_SCALE)
 
 
 def stereo_bm_lr(left: torch.Tensor, right: torch.Tensor,

@@ -12,8 +12,8 @@ disparity-lifted 3D points in the robot frame (Stereo.cpp:119-155).
 `frontend_dispatch` queues one frame's image-sized device work and
 returns without waiting for the card; `frontend_collect` waits for it and
 finishes on the host, so a driver may queue frame i+1 before it collects
-frame i.  The speckle filter reads its convergence flag on the host, so
-it runs at collect time.  A CPU tensor takes every kernel's plain
+frame i.  The speckle filter checks its labels for convergence on the
+host, so it runs at collect time.  A CPU tensor takes every kernel's plain
 version.  The other depth methods (SGBM, LK stereo, OpenCV's BM) raise
 NotImplementedError (ROADMAP A4).
 """
