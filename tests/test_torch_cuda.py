@@ -492,3 +492,39 @@ def test_batch_app_runs_kernels_and_closes_a_loop(tmp_path):
     assert _cuda.LAUNCHES["lm_refine"] >= n - 1 + res["n_loop_closures"]
     assert not any(_cuda.PLAIN_CALLS.values())
     assert np.isfinite(res["ate_m"]) and res["n_occupied_voxels"] > 0
+
+
+# configurations outside K1's and K2's envelopes (tpuslam computes each):
+# kernel -> StereoBMConfig keywords, or GFTT's block size
+OUT_OF_ENVELOPE = {"bm_ndisp32": dict(num_disparities=32),
+                   "bm_block33": dict(prefilter_cap=15, block_size=33),
+                   "bm_cost": dict(prefilter_cap=63, block_size=23),
+                   "gftt_block5": 5}
+
+
+@pytest.mark.parametrize("case", list(OUT_OF_ENVELOPE))
+def test_out_of_envelope_runs_plain_on_the_card(pair, case):
+    """A configuration that K1 or K2 refuses runs the plain version on the
+    card, counted in PLAIN_CALLS and never launched, and equals the same
+    call on the CPU (the LR check still runs K5 on the card)."""
+    from tpuslam_torch.config import StereoBMConfig
+    from tpuslam_torch.kernels import _cuda, gftt as G, stereo_bm as T
+    cpu = tuple(t.cpu() for t in pair)
+    if case.startswith("bm"):
+        cfg = StereoBMConfig(**OUT_OF_ENVELOPE[case])
+        assert T.k1_refusal(cfg) is not None
+        run, name = (lambda lb, rb: (T.stereo_bm(lb, rb, cfg),)), \
+            "stereo_bm"
+    else:
+        assert G.k2_refusal(OUT_OF_ENVELOPE[case]) is not None
+        run, name = (lambda lb, rb: G.gftt_candidates(
+            lb, 0.01, OUT_OF_ENVELOPE[case], 4096)), "gftt"
+    _cuda.reset_counters()
+    got = run(*pair)
+    torch.cuda.synchronize()
+    assert _cuda.PLAIN_CALLS[name] == 1 and _cuda.LAUNCHES[name] == 0
+    if name == "stereo_bm":
+        assert _cuda.LAUNCHES["lr_check"] == 1
+    want = run(*cpu)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

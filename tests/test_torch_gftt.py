@@ -135,3 +135,29 @@ def test_nms_small_capacity_and_cap():
     assert int(nt[0]) == int(nj) == 50
     np.testing.assert_array_equal(kt[0].numpy(), np.asarray(kj))
 
+
+
+@pytest.mark.parametrize("block, inside", [(3, True), (5, False)])
+def test_dispatch_choice_on_the_card(block, inside):
+    """gftt_candidates sends a CUDA image to K2 exactly when k2_refusal is
+    None (block 3), through the predicate it shares with the StereoBM
+    dispatcher (_cuda.on_kernel); another block size takes the plain path
+    on the card; a CPU image always the plain path, which is tpuslam's XLA
+    path at that block size."""
+    from types import SimpleNamespace
+    from tpuslam_torch.kernels import _cuda
+    assert (T.k2_refusal(block) is None) == inside
+    assert _cuda.on_kernel(SimpleNamespace(is_cuda=True),
+                           T.k2_refusal(block)) == inside
+    img = np.random.default_rng(block).integers(0, 256, (240, 320)) \
+        .astype(np.uint8)
+    assert not _cuda.on_kernel(torch.as_tensor(img), T.k2_refusal(block))
+    _cuda.reset_counters()
+    vals, idx, maxv, n = T.gftt_candidates(torch.as_tensor(img)[None],
+                                           0.01, block, 64)
+    assert _cuda.PLAIN_CALLS["gftt"] == 1 and _cuda.LAUNCHES["gftt"] == 0
+    jv, ji, jm, jn = J.gftt_candidates(jnp.asarray(img), jnp.float32(0.01),
+                                       block, 64)
+    assert int(n[0]) == int(jn)
+    np.testing.assert_array_equal(idx[0].numpy()[:int(jn)],
+                                  np.asarray(ji)[:int(jn)])

@@ -420,3 +420,35 @@ def test_probe_needs_the_card(monkeypatch):
     assert full_bytes == 8
     assert full_ops == sum(o for _, o in added.values())
     assert [b for b, _ in added.values()] == [4, 6, 0, 0, 0, 0, 0]
+
+
+# configurations outside kernel K1's envelope (tpuslam computes each), and
+# the default one inside it: (StereoBMConfig keywords, K1 takes it)
+K1_ENVELOPE = {"default": ({}, True),
+               "ndisp32": (dict(num_disparities=32), False),
+               "block33": (dict(prefilter_cap=15, block_size=33), False),
+               "cost": (dict(prefilter_cap=63, block_size=23), False)}
+
+
+@pytest.mark.parametrize("case", list(K1_ENVELOPE))
+def test_dispatch_choice_on_the_card(monkeypatch, case):
+    """The StereoBM dispatcher sends a CUDA tensor to K1 exactly when
+    k1_refusal is None (the predicate it shares with the GFTT dispatcher
+    is _cuda.on_kernel), else to the plain version on the card; a CPU
+    tensor always to the plain version.  The choice is read with a
+    stand-in CUDA tensor and recording twins, so nothing is built."""
+    from types import SimpleNamespace
+    from tpuslam_torch.kernels import _cuda
+    kw, inside = K1_ENVELOPE[case]
+    cfg = StereoBMConfig(disp12_max_diff=-1, **kw)
+    assert (T.k1_refusal(cfg) is None) == inside
+    called = []
+    monkeypatch.setattr(T, "stereo_bm_cuda",
+                        lambda *a: called.append("kernel") or (1, 2))
+    monkeypatch.setattr(T, "stereo_bm_plain",
+                        lambda *a: called.append("plain") or (1, 2))
+    card = SimpleNamespace(is_cuda=True)
+    T.stereo_bm_lr(card, card, cfg)
+    T.stereo_bm_lr(torch.zeros(1, 4, 4, dtype=torch.uint8), None, cfg)
+    assert called == ["kernel" if inside else "plain", "plain"]
+    assert _cuda.on_kernel(card, T.k1_refusal(cfg)) == inside

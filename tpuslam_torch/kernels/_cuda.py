@@ -17,6 +17,12 @@ two halves of K3's (counted as K3's plain version when it runs them).
 Counters: every kernel wrapper adds one to LAUNCHES[name] where it launches
 its kernel; every plain PyTorch twin adds one to PLAIN_CALLS[name].  A run
 can thus show which path it took.
+
+Dispatch (`on_kernel`): a CUDA tensor goes to its kernel unless its
+configuration lies outside what the kernel was built for; then the plain
+version runs on the card, as tpuslam's dispatch takes its XLA path there.
+The choice is made from the configuration before any launch: a failed build
+or launch inside the envelope raises.
 """
 
 from __future__ import annotations
@@ -164,6 +170,14 @@ def attributes(src: str, sym: str, n: int, *ints) -> tuple:
     if rc != 0:
         raise RuntimeError(f"{sym}: cudaError {rc}")
     return tuple(out)
+
+
+def on_kernel(t: torch.Tensor, refusal) -> bool:
+    """Whether a dispatcher sends `t` to its kernel: a CUDA tensor whose
+    configuration the kernel takes (`refusal`, the kernel's reason to
+    refuse the configuration, is None).  Any other tensor takes the plain
+    version, on its own device."""
+    return t.is_cuda and refusal is None
 
 
 def expect(t: torch.Tensor, what: str, dtype: torch.dtype,

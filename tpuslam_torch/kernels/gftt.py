@@ -102,6 +102,14 @@ def gftt_response_dil_cuda(img: torch.Tensor):
     return eig, dil
 
 
+def k2_refusal(block_size: int) -> str | None:
+    """Why kernel K2 cannot compute the response at `block_size`, or None
+    where it can: csrc/gftt.cu is built for 3x3 blocks."""
+    if block_size != 3:
+        return f"block_size {block_size}: csrc/gftt.cu is built for block 3"
+    return None
+
+
 def gftt_kernel_attrs() -> dict:
     """Registers, shared bytes and local bytes per thread of K2's kernel
     on the current card, and its strips' output rows and columns and its
@@ -140,12 +148,11 @@ def gftt_candidates(img: torch.Tensor, quality_level: float,
     raw-dilation mask; the plain path thresholds first.  The two masks
     agree: above the threshold, a strictly larger neighbour is itself
     above the threshold, so (z != 0) & (z == dil(z)) equals
-    (eig > thr) & (eig == dil(eig))."""
+    (eig > thr) & (eig == dil(eig)).  A CUDA tensor with another block
+    size than K2's takes the plain path on the card (k2_refusal)."""
     B = img.shape[0]
     qual = torch.tensor(quality_level, dtype=torch.float32)
-    if img.is_cuda:
-        if block_size != 3:
-            raise NotImplementedError("csrc/gftt.cu is built for block 3")
+    if _cuda.on_kernel(img, k2_refusal(block_size)):
         eig, dil = gftt_response_dil_cuda(img)
         maxv = eig.amax(dim=(1, 2))
         thr = maxv * qual.to(img.device)

@@ -232,26 +232,46 @@ def stereo_bm_phase_plain(left: torch.Tensor, right: torch.Tensor,
 K1_MAX_COST = 65535
 
 
-def _check_bm_args(left, right, cfg: StereoBMConfig) -> None:
-    """What kernel K1 takes: a configuration whose costs fit its uint16
-    (checked first, so that it is refused whatever the tensors), a CUDA
-    uint8 (B, H, W) pair, 64 disparities, an odd block of 3..31, at least
-    3x3 pixels."""
+def _k1_cost_refusal(cfg: StereoBMConfig) -> ValueError | None:
     max_cost = 2 * cfg.prefilter_cap * cfg.block_size ** 2
     if max_cost > K1_MAX_COST:
-        raise ValueError(
+        return ValueError(
             f"prefilter_cap {cfg.prefilter_cap}, block_size "
             f"{cfg.block_size}: a SAD reaches 2 * cap * block**2 = "
             f"{max_cost} > {K1_MAX_COST}, K1's uint16 cost limit")
+    return None
+
+
+def k1_refusal(cfg: StereoBMConfig) -> Exception | None:
+    """The error kernel K1 raises for configuration `cfg`, or None where
+    it takes it: costs within its uint16 (2 * cap * block**2 <= 65535), 64
+    disparities, an odd block of 3..31.  The dispatchers send a CUDA
+    tensor of any other configuration to the plain version."""
+    refusal = _k1_cost_refusal(cfg)
+    if refusal is not None:
+        return refusal
+    if cfg.num_disparities != 64:
+        return NotImplementedError(
+            "csrc/stereo_bm.cu is built for num_disparities=64")
+    if cfg.block_size % 2 == 0 or not 3 <= cfg.block_size <= 31:
+        return ValueError(f"block_size {cfg.block_size}: odd, 3..31")
+    return None
+
+
+def _check_bm_args(left, right, cfg: StereoBMConfig) -> None:
+    """What kernel K1 takes: a configuration whose costs fit its uint16
+    (checked first, so that it is refused whatever the tensors), a CUDA
+    uint8 (B, H, W) pair, the rest of k1_refusal, at least 3x3 pixels."""
+    refusal = _k1_cost_refusal(cfg)
+    if refusal is not None:
+        raise refusal
     _cuda.expect(left, "left", torch.uint8, 3)
     _cuda.expect(right, "right", torch.uint8, 3)
     if right.shape != left.shape or right.device != left.device:
         raise ValueError("left/right must share shape and device")
-    if cfg.num_disparities != 64:
-        raise NotImplementedError(
-            "csrc/stereo_bm.cu is built for num_disparities=64")
-    if cfg.block_size % 2 == 0 or not 3 <= cfg.block_size <= 31:
-        raise ValueError(f"block_size {cfg.block_size}: odd, 3..31")
+    refusal = k1_refusal(cfg)
+    if refusal is not None:
+        raise refusal
     if left.shape[1] < 3 or left.shape[2] < 3:
         raise ValueError("image smaller than 3x3")
 
@@ -494,8 +514,11 @@ def stereo_bm_lr(left: torch.Tensor, right: torch.Tensor,
                  cfg: StereoBMConfig = StereoBMConfig()) -> torch.Tensor:
     """StereoBM and its left-right check (when `disp12_max_diff >= 0`),
     without the speckle pass: kernels K1 and K5 for a CUDA tensor, the
-    plain versions for a CPU tensor.  Nothing here waits for the card."""
-    fn = stereo_bm_cuda if left.is_cuda else stereo_bm_plain
+    plain versions for a CPU tensor.  A CUDA tensor of a configuration
+    that K1 refuses (k1_refusal) takes K1's plain version on the card.
+    Nothing here waits for the card."""
+    fn = stereo_bm_cuda if _cuda.on_kernel(left, k1_refusal(cfg)) \
+        else stereo_bm_plain
     disp, minsad = fn(left, right, cfg)
     if cfg.disp12_max_diff >= 0:
         disp = lr_check(disp, minsad, cfg)
@@ -509,8 +532,8 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor,
     left-right check when `disp12_max_diff >= 0` and, with `with_speckle`,
     the speckle pass (`speckle_bm`), as tpuslam's stereo_bm.
 
-    A CUDA tensor goes to kernels K1 and K5, a CPU tensor to the plain
-    versions."""
+    A CUDA tensor goes to kernels K1 and K5 (K1's plain version where K1
+    refuses the configuration), a CPU tensor to the plain versions."""
     disp = stereo_bm_lr(left, right, cfg)
     return speckle_bm(disp, cfg) if with_speckle else disp
 
