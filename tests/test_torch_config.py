@@ -69,6 +69,15 @@ def test_copy_has_the_original_code(rel):
         _code_without_docstrings(os.path.join(ROOT, "tpuslam", rel))
 
 
+def test_native_loader_is_the_original():
+    """The port's native decoder is tpuslam's loader.cpp, byte for byte
+    (the port builds its own copy: it does not call into tpuslam/)."""
+    with open(os.path.join(ROOT, "tpuslam_torch", "csrc", "loader.cpp"),
+              "rb") as f, open(os.path.join(ROOT, "tpuslam", "native",
+                                            "loader.cpp"), "rb") as g:
+        assert f.read() == g.read()
+
+
 def _definition(path, name):
     """The code of top-level function or class `name` of `path`,
     docstrings aside."""
@@ -192,7 +201,8 @@ def test_import_leaves_jax_out():
             "tpuslam_torch.mapping.mapper, tpuslam_torch.mapping.ba_window, "
             "tpuslam_torch.mapping.chunk_dict, tpuslam_torch.optim, "
             "tpuslam_torch.optim.ba, tpuslam_torch.cli.slam_batch, "
-            "tpuslam_torch.mapping3d, tpuslam_torch.io.dataset; "
+            "tpuslam_torch.mapping3d, tpuslam_torch.io.dataset, "
+            "tpuslam_torch.io.native_loader, tpuslam_torch.io.resize; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'tpuslam', 'PIL')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -70,16 +70,24 @@ def _png_bytes(w: int, h: int, rows: bytes) -> bytes:
 
 @pytest.mark.parametrize("width", [1, 2, 1241])
 @pytest.mark.parametrize("kind", range(5))
-def test_png_decode_each_filter(kind, width):
+@pytest.mark.parametrize("decoder", ["python", "native"])
+def test_png_decode_each_filter(tmp_path, decoder, kind, width):
     """Hand-built files, every row with filter `kind`, decode to what
-    Pillow decodes (and to the image that was filtered)."""
+    Pillow decodes (and to the image that was filtered), through io/png.py
+    and through the native decoder (csrc/loader.cpp)."""
+    from tpuslam_torch.io.native_loader import decode_image
     img = np.random.default_rng(kind * 7 + width).integers(
         0, 256, (4, width)).astype(np.uint8)
     img[2] = img[1]                      # equal rows: Up residuals of 0
     data = _png_bytes(width, 4, _filter_rows(img, kind))
     pil = np.asarray(Image.open(io.BytesIO(data)))
     np.testing.assert_array_equal(pil, img)
-    np.testing.assert_array_equal(png.decode(data), pil)
+    if decoder == "python":
+        got = png.decode(data)
+    else:
+        (tmp_path / "x.png").write_bytes(data)
+        got = decode_image(str(tmp_path / "x.png"))
+    np.testing.assert_array_equal(got, pil)
 
 
 def test_png_decode_pillow_written(stereo_pair):
@@ -136,11 +144,43 @@ def test_png_encode_read_by_pillow(tmp_path, shape):
     assert png.image_size(path) == (shape[1], shape[0])
 
 
-def test_png_refuses_other_kinds():
+# Pillow mode and shape of each colour type that the decoder reads
+COLOUR_KINDS = {"rgb": ("RGB", (5, 7, 3)), "rgba": ("RGBA", (5, 7, 4)),
+                "gray_alpha": ("LA", (5, 7, 2))}
+
+
+@pytest.mark.parametrize("case", ["rgb", "rgba", "gray_alpha", "16bit",
+                                  "interlaced", "palette"])
+def test_png_refuses_other_kinds(case):
+    """8-bit colour types 2, 6 and 4 decode to Pillow's channels, and
+    `luma` gives Pillow's convert("L"); 16-bit, interlaced and palette
+    files still raise NotImplementedError, from the header alone."""
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((2, 3, 3), np.uint8)).save(buf, format="PNG")
-    with pytest.raises(NotImplementedError, match="grayscale"):
-        png.decode(buf.getvalue())
+    if case in COLOUR_KINDS:
+        mode, shape = COLOUR_KINDS[case]
+        img = np.random.default_rng(len(shape) * shape[-1]).integers(
+            0, 256, shape).astype(np.uint8)
+        Image.fromarray(img, mode).save(buf, format="PNG")
+        data = buf.getvalue()
+        got = png.decode(data)
+        np.testing.assert_array_equal(got, img)
+        np.testing.assert_array_equal(
+            png.luma(got),
+            np.asarray(Image.open(io.BytesIO(data)).convert("L")))
+        assert png._header(data) == (7, 5)
+        return
+    if case == "16bit":
+        Image.fromarray(np.zeros((2, 3), np.uint16)).save(buf, format="PNG")
+        data = buf.getvalue()
+    elif case == "palette":
+        Image.fromarray(np.zeros((2, 3), np.uint8)).convert("P").save(
+            buf, format="PNG")
+        data = buf.getvalue()
+    else:           # Pillow writes no interlaced PNG: an Adam7 header
+        data = png.SIGNATURE + png._chunk(
+            b"IHDR", struct.pack(">IIBBBBB", 3, 2, 8, 0, 0, 0, 1))
+    with pytest.raises(NotImplementedError, match="not interlaced"):
+        png.decode(data)
 
 
 POSES_KW = dict(width=160, height=120, f=150.0, baseline=0.54, seed=5)

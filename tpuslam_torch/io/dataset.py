@@ -5,22 +5,24 @@ CameraStereoImages.cpp and Graph.cpp): the sorted directory scan with a
 length-then-ASCII comparator, the stereo pair + timestamp + ground-truth
 reader, KITTI ground-truth import with the optical-frame conjugation, and
 the poses/links CSV save/load used for optimizer stage replay.  The text
-code is tpuslam's; images are decoded by io/png.py (no Pillow), and
-`prefetch_iter` decodes ahead on one thread (the reference's native
-double-banked loader is ROADMAP A3).
+code is tpuslam's.  Images are read without Pillow: `load_gray` gives what
+Pillow's convert("L") gives (gray PNGs and PGMs through the native decoder,
+colour PNGs through io/png.py and Pillow's luma) and resizes as Pillow does
+(io/resize.py); `prefetch_iter` decodes ahead through the native
+double-banked loader (io/native_loader.py), as tpuslam's does.
 """
 
 from __future__ import annotations
 
 import os
-from collections import deque
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from ..geometry import transform as T
-from .png import read_png
+from . import png
+from .native_loader import NativeStereoLoader, decode_image
+from .resize import resize_bilinear
 
 # KITTI GT conjugation frame (Graph.cpp:38-41) — equals the camera
 # local transform: optical frame -> robot frame.
@@ -40,13 +42,21 @@ def list_images(path: str) -> list[str]:
 
 
 def load_gray(path: str, do_resize: bool = False) -> np.ndarray:
-    """Grayscale image load (CameraStereoImages.cpp:120-132) of an 8-bit
-    grayscale PNG.  Resizing (the reference's cv::resize to 640x480) is
-    not ported: ROADMAP A3."""
+    """Grayscale image load (CameraStereoImages.cpp:120-132), equal to
+    tpuslam's Pillow `open(path).convert("L")`: gray PNGs and binary PGMs
+    through the native decoder, PNGs of colour types 2/4/6 through
+    io/png.py and Pillow's luma; 16-bit, interlaced and palette PNGs raise
+    NotImplementedError.  `do_resize` resizes to 640x480 as tpuslam does,
+    with Pillow's bilinear filter."""
+    with open(path, "rb") as f:
+        head = f.read(64)
+    if head.startswith(png.SIGNATURE) and png._layout(head)[2] != 1:
+        img = png.luma(png.read_png(path))
+    else:
+        img = decode_image(path)
     if do_resize:
-        raise NotImplementedError(
-            "do_resize=True: image resizing is not ported yet (ROADMAP A3)")
-    return read_png(path)
+        img = resize_bilinear(img, (640, 480))
+    return img
 
 
 def import_poses(path: str) -> list[np.ndarray]:
@@ -116,21 +126,37 @@ class StereoImageDataset:
         }
 
     def prefetch_iter(self, start: int = 0, end: int | None = None,
-                      depth: int = 2):
-        """Iterate items [start, end) while one worker thread decodes the
-        next `depth` of them (zlib and numpy release the GIL for most of
-        a decode)."""
+                      n_banks: int = 4, n_threads: int = 2):
+        """Iterate items [start, end) through the native double-banked
+        prefetch loader: `n_threads` decoder threads fill `n_banks` frame
+        banks ahead of the consumer (the reference's A/B DDR bank scheme,
+        FPGA.h:35-53), outside the GIL.  Each image is copied out of its
+        bank before it is yielded.  Images that need resizing are read one
+        by one, as tpuslam reads them."""
         end = len(self) if end is None else min(end, len(self))
-        with ThreadPoolExecutor(1) as pool:
-            pending = deque(pool.submit(self.__getitem__, i)
-                            for i in range(start, min(start + depth, end)))
-            nxt = start + len(pending)
-            while pending:
-                item = pending.popleft().result()
-                if nxt < end:
-                    pending.append(pool.submit(self.__getitem__, nxt))
-                    nxt += 1
-                yield item
+        if self.do_resize:
+            for i in range(start, end):
+                yield self[i]
+            return
+        if start >= end:
+            return
+        loader = NativeStereoLoader(
+            [os.path.join(self.left_dir, self._left[i])
+             for i in range(start, end)],
+            [os.path.join(self.right_dir, self._right[i])
+             for i in range(start, end)], n_banks, n_threads)
+        try:
+            for k, left, right in loader:
+                i = start + k
+                yield {
+                    "id": i + 1,
+                    "stamp": self.stamp(i),
+                    "left": np.array(left),
+                    "right": np.array(right),
+                    "ground_truth": self.ground_truth(i),
+                }
+        finally:
+            loader.close()
 
 
 # --------------------------------------------------------------------------

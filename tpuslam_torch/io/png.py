@@ -1,15 +1,22 @@
-"""8-bit grayscale PNG read and write on the standard library's zlib.
+"""8-bit PNG read and 8-bit grayscale PNG write on the standard library's
+zlib.
 
-The port reads KITTI-layout sequences without Pillow.  `read_png` decodes
-non-interlaced 8-bit grayscale PNGs (colour type 0) with any of the five
-row filters (PNG spec section 9.2): None and Up as whole-row array
-operations, Sub as a uint8 cumulative sum along the row, Average and Paeth
-pixel by pixel along the row, since each pixel there depends on the
-decoded one to its left.  libpng and Pillow choose a filter per row, so a
-file they wrote mixes all five, mostly Paeth on a photograph.  `write_png`
-chooses as they do: per row the filter whose output bytes, read as signed,
-have the least sum of absolute values.  So a written sequence decodes at
-the cost of a libpng- or Pillow-written one.
+The port reads KITTI-layout sequences without Pillow.  `decode` reads
+non-interlaced 8-bit PNGs of colour types 0, 2, 4 and 6 (gray, RGB,
+gray+alpha, RGBA) with any of the five row filters (PNG spec section 9.2):
+None and Up as whole-row array operations, Sub as a uint8 cumulative sum
+along each channel of the row, Average and Paeth pixel by pixel along each
+channel, since each byte there depends on the decoded one a pixel to its
+left.  `luma` converts a decoded colour image to gray as Pillow's
+convert("L") does.  The sequence readers decode through the native loader
+(io/native_loader.py); this decoder serves colour files in `load_gray` and
+the tests as an independent oracle.
+
+libpng and Pillow choose a filter per row, so a file they wrote mixes all
+five, mostly Paeth on a photograph.  `write_png` chooses as they do: per
+row the filter whose output bytes, read as signed, have the least sum of
+absolute values.  So a written sequence decodes at the cost of a libpng-
+or Pillow-written one.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# bytes per pixel of each colour type read: gray, RGB, gray+alpha, RGBA
+CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
 
 def _chunks(data: bytes):
@@ -35,18 +44,25 @@ def _chunks(data: bytes):
             return
 
 
-def _header(data: bytes):
-    """(width, height) of an 8-bit grayscale non-interlaced PNG; raises for
-    any other kind."""
+def _layout(data: bytes):
+    """(width, height, bytes per pixel) of an 8-bit non-interlaced PNG of
+    colour type 0, 2, 4 or 6; raises for any other kind."""
     kind, ihdr = next(_chunks(data))
     if kind != b"IHDR":
         raise ValueError("PNG without IHDR first")
     w, h, depth, colour, _, _, interlace = struct.unpack(">IIBBBBB", ihdr)
-    if depth != 8 or colour != 0 or interlace != 0:
+    if depth != 8 or colour not in CHANNELS or interlace != 0:
         raise NotImplementedError(
             f"PNG bit depth {depth}, colour type {colour}, interlace "
-            f"{interlace}: only 8-bit grayscale, not interlaced, is read")
-    return w, h
+            f"{interlace}: only 8-bit, not interlaced, colour types 0, 2, "
+            f"4 and 6 are read")
+    return w, h, CHANNELS[colour]
+
+
+def _header(data: bytes):
+    """(width, height) of a PNG that `decode` reads; raises for any other
+    kind."""
+    return _layout(data)[:2]
 
 
 def image_size(path: str) -> tuple[int, int]:
@@ -84,36 +100,55 @@ def _paeth_row(raw: list, prior: list) -> list:
 
 
 def decode(data: bytes) -> np.ndarray:
-    """PNG file bytes -> (H, W) uint8 image."""
-    w, h = _header(data)
+    """PNG file bytes -> (H, W) uint8 image for gray, (H, W, C) for the
+    colour types of C = 3 (RGB), 2 (gray+alpha) and 4 (RGBA) channels."""
+    w, h, ch = _layout(data)
+    stride = w * ch
     idat = b"".join(p for k, p in _chunks(data) if k == b"IDAT")
     rows = np.frombuffer(zlib.decompress(idat), np.uint8)
-    if rows.size != h * (w + 1):
+    if rows.size != h * (stride + 1):
         raise ValueError(f"PNG data holds {rows.size} bytes, not "
-                         f"{h} rows of 1 + {w}")
-    rows = rows.reshape(h, w + 1)
-    out = np.empty((h, w), np.uint8)
-    prior = np.zeros(w, np.uint8)
+                         f"{h} rows of 1 + {stride}")
+    rows = rows.reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
     for y in range(h):
         kind, raw = rows[y, 0], rows[y, 1:]
         if kind == 0:                            # None
             out[y] = raw
         elif kind == 1:                          # Sub
-            np.cumsum(raw, dtype=np.uint8, out=out[y])
+            np.cumsum(raw.reshape(w, ch), axis=0, dtype=np.uint8,
+                      out=out[y].reshape(w, ch))
         elif kind == 2:                          # Up
             np.add(raw, prior, out=out[y])
-        elif kind == 3:                          # Average
-            out[y] = _average_row(raw.tolist(), prior.tolist())
-        elif kind == 4:                          # Paeth
-            out[y] = _paeth_row(raw.tolist(), prior.tolist())
+        elif kind in (3, 4):                     # Average, Paeth
+            # each channel unfilters on its own bytes alone
+            unfilter = _average_row if kind == 3 else _paeth_row
+            for c in range(ch):
+                out[y, c::ch] = unfilter(raw[c::ch].tolist(),
+                                         prior[c::ch].tolist())
         else:
             raise ValueError(f"PNG row {y}: unknown filter {kind}")
         prior = out[y]
-    return out
+    return out if ch == 1 else out.reshape(h, w, ch)
+
+
+def luma(img: np.ndarray) -> np.ndarray:
+    """A decoded image as Pillow's convert("L") makes it gray: gray stays,
+    gray+alpha keeps its gray byte, RGB and RGBA (alpha ignored) take the
+    ITU-R 601-2 luma in Pillow's integer form,
+    (19595 R + 38470 G + 7471 B + 0x8000) >> 16."""
+    if img.ndim == 2:
+        return img
+    if img.shape[2] == 2:
+        return img[..., 0].copy()
+    r, g, b = (img[..., i].astype(np.uint32) for i in range(3))
+    return ((19595 * r + 38470 * g + 7471 * b + 0x8000) >> 16) \
+        .astype(np.uint8)
 
 
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit grayscale PNG file -> (H, W) uint8 image."""
+    """A PNG file -> its `decode`d image."""
     with open(path, "rb") as f:
         return decode(f.read())
 
@@ -162,9 +197,10 @@ def encode(img: np.ndarray, level: int = 6,
 
 def row_filters(data: bytes) -> np.ndarray:
     """The filter type (0-4) of every row of a PNG file's bytes."""
-    w, h = _header(data)
+    w, h, ch = _layout(data)
     idat = b"".join(p for k, p in _chunks(data) if k == b"IDAT")
-    return np.frombuffer(zlib.decompress(idat), np.uint8)[::w + 1][:h].copy()
+    return np.frombuffer(zlib.decompress(idat),
+                         np.uint8)[::w * ch + 1][:h].copy()
 
 
 def write_png(path: str, img: np.ndarray, level: int = 6,
