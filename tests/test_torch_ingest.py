@@ -8,7 +8,13 @@
 - `load_gray` equals tpuslam's (Pillow's convert("L"), and its bilinear
   resize to 640x480) on every kind tpuslam reads; `resize_bilinear` equals
   Pillow at the shape pairs that matter and at random small ones.
-All exact: the decoders and the resize are integer arithmetic.
+- `FastSlamPipeline.run_ingest` over a written 8-frame 320x240 directory
+  in chunks of 3 (two whole chunks, the buffers' rotation back to the
+  first, a partial last chunk) equals `run_staged` on the same frames
+  exactly: poses, inliers, lost flags and the Mapper's graph
+  (tests/test_run_ingest.py does the same for tpuslam).
+All exact: the decoders and the resize are integer arithmetic, and both
+runs compute the same frames in the same order with the same draws.
 """
 
 import os
@@ -218,3 +224,84 @@ def test_resize_matches_pillow(stereo_pair, name, shape, size):
             .integers(0, 256, shape).astype(np.uint8)
     want = np.asarray(Image.fromarray(img).resize(size, Image.BILINEAR))
     np.testing.assert_array_equal(resize_bilinear(img, size), want)
+
+
+INGEST = dict(width=320, height=240, f=250.0, baseline=0.54, seed=3)
+N_INGEST, CHUNK_INGEST = 8, 3
+
+
+@pytest.fixture(scope="module")
+def ingest_runs(tmp_path_factory):
+    """The port's run_staged and run_ingest (after reset()) over the same
+    written 8-frame sequence, each with its own Mapper, chunk 3 (map_update
+    3, so the chunk stays 3)."""
+    from tpuslam_torch.config import MapperConfig, SlamConfig
+    from tpuslam_torch.io.dataset import StereoImageDataset
+    from tpuslam_torch.io.synthetic import sequence_camera, write_sequence
+    from tpuslam_torch.mapping.mapper import Mapper
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    seq = str(tmp_path_factory.mktemp("ingestseq"))
+    write_sequence(seq, n_frames=N_INGEST, speed=0.4, yaw_rate=0.002,
+                   device="cpu", **INGEST)
+    ds = StereoImageDataset(left_dir=os.path.join(seq, "image_0"),
+                            right_dir=os.path.join(seq, "image_1"),
+                            times_path=os.path.join(seq, "times.txt"))
+    items = [ds[i] for i in range(len(ds))]
+    cam = sequence_camera(INGEST["width"], INGEST["height"], INGEST["f"],
+                          INGEST["baseline"])
+    cfg = SlamConfig().replace(mapper=MapperConfig(map_update=3))
+    pipe = FastSlamPipeline(cam, cfg, chunk=CHUNK_INGEST, capacity=384,
+                            device="cpu")
+    assert pipe.chunk == CHUNK_INGEST
+
+    def mapper():
+        return Mapper(cam, cfg.mapper, cfg.matching, cfg.pnp, device="cpu")
+
+    m_staged = mapper()
+    staged = pipe.run_staged(pipe.stage_chunks(items), items,
+                             mapper=m_staged, mapper_async=True)
+    paths = [[os.path.join(d, n) for n in names]
+             for d, names in ((ds.left_dir, ds._left),
+                              (ds.right_dir, ds._right))]
+    pipe.reset()
+    m_ingest = mapper()
+    ingest = pipe.run_ingest(*paths, [it["stamp"] for it in items],
+                             mapper=m_ingest)
+    return staged, ingest, m_staged, m_ingest
+
+
+def test_run_ingest_matches_staged(ingest_runs):
+    staged, ingest, _, _ = ingest_runs
+    assert len(staged) == len(ingest) == N_INGEST
+    assert not any(i.lost for i in staged[1:])
+    for a, b in zip(staged, ingest):
+        np.testing.assert_array_equal(a.pose, b.pose)
+        assert a.num_inliers == b.num_inliers and a.lost == b.lost
+        assert a.stamp == b.stamp
+
+
+def test_run_ingest_builds_the_same_graph(ingest_runs):
+    _, _, m_staged, m_ingest = ingest_runs
+    pa, la = m_staged.get_graph()
+    pb, lb = m_ingest.get_graph()
+    assert sorted(pa) == sorted(pb) and len(pa) == N_INGEST
+    for k in pa:
+        np.testing.assert_array_equal(pa[k], pb[k])
+    assert [(k, l.from_id, l.to_id, l.type) for k, l in la.items()] == \
+        [(k, l.from_id, l.to_id, l.type) for k, l in lb.items()]
+    for (_, a), (_, b) in zip(la.items(), lb.items()):
+        np.testing.assert_array_equal(a.transform, b.transform)
+    assert m_staged.vwd._count == m_ingest.vwd._count > 0
+
+
+def test_run_ingest_refuses_other_image_sizes(ingest_runs, png_dir):
+    """Files whose size is not the camera's are refused by name."""
+    from tpuslam_torch.config import SlamConfig
+    from tpuslam_torch.io.synthetic import sequence_camera
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    paths, _ = png_dir
+    pipe = FastSlamPipeline(sequence_camera(64, 48, 50.0, 0.5),
+                            SlamConfig(), chunk=5, capacity=64,
+                            device="cpu")
+    with pytest.raises(ValueError, match="frame 1"):
+        pipe.run_ingest(paths[:2], paths[:2], [0.0, 0.1])

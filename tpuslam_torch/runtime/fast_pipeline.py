@@ -8,10 +8,13 @@ download of the small per-frame results, copied into pinned host memory
 without blocking and waited for with an event when the chunk is
 collected.  With a Mapper, the chunk's dictionary update
 (mapping/chunk_dict.py) is queued on the device right after the VO chunk,
-and the Mapper's torch work runs on the pipeline's device.
+and the Mapper's torch work runs on the pipeline's device.  `run_ingest`
+reads the frames from files through the native prefetch ring
+(io/native_loader.py) and uploads them from pinned host buffers on a copy
+stream while earlier chunks compute.
 
-Not ported here: the ingest loop (ROADMAP A3), and the XLA compile cache
-and AOT artifacts, which exist only for XLA.
+Not ported: the XLA compile cache and AOT artifacts, which exist only for
+XLA.
 """
 
 from __future__ import annotations
@@ -279,6 +282,117 @@ class FastSlamPipeline:
                 ((lb, rb, stamps, n, gts_of(i, n))
                  for i, (lb, rb, stamps, n) in enumerate(staged)), mapper)
 
+        return self._run_async(
+            ((lb, rb, stamps, n, gts_of(i, n))
+             for i, (lb, rb, stamps, n) in enumerate(staged)), mapper)
+
+    def run_ingest(self, left_paths: list[str], right_paths: list[str],
+                   stamps, mapper=None) -> list[OdomInfo]:
+        """run_staged() over frames read from image files: the native
+        decoder threads fill a ring of 2 * chunk + 8 banks ahead
+        (io/native_loader.py); each frame is copied out of its bank into
+        one of two rotating host chunk buffers per eye (pinned when the
+        device is the card); every quarter chunk is uploaded on a copy
+        stream as soon as it is decoded, so a chunk's upload overlaps the
+        decode of its own tail and the compute of the chunk before; the
+        chunk is dispatched once whole, and its results and the Mapper run
+        on a consumer thread.  A partial last chunk goes to dispatch as
+        host arrays.  Counterpart of tpuslam's run_ingest, the
+        measured-loop analog of the reference's sensor-to-DDR DMA into
+        the PL's double banks (xusb_main.c:91-212, FPGA.h:35-53)."""
+        from ..io.native_loader import NativeStereoLoader
+        self._attach_mapper(mapper)
+        loader = NativeStereoLoader(left_paths, right_paths,
+                                    n_banks=2 * self.chunk + 8, n_threads=4)
+        try:
+            return self._run_async(
+                self._ingest_chunks(loader, np.asarray(stamps, np.float64)),
+                mapper)
+        finally:
+            loader.close()
+
+    def _ingest_chunks(self, loader, stamps):
+        """(lefts, rights, stamps, n, None) of each chunk of `loader`'s
+        frames: staged (B, H, W) device tensors for a whole chunk, host
+        views of its buffer rows for a partial last one."""
+        B = self.chunk
+        H, W = self.camera.height, self.camera.width
+        card = self.device.type == "cuda"
+        n_total = len(loader)
+        slab = max(1, B // 4)
+        bufs = [tuple(torch.empty((B, H, W), dtype=torch.uint8,
+                                  pin_memory=card) for _ in range(2))
+                for _ in range(2)]
+        views = [(lb.numpy(), rb.numpy()) for lb, rb in bufs]
+        # the event after the last upload out of each buffer: the buffer
+        # is refilled only once that upload has landed
+        landed = [None, None]
+        copy = torch.cuda.Stream(self.device) if card else None
+        cur, chunk_idx, n_in, slabs = 0, 0, 0, []
+        try:
+            for idx, left, right in loader:
+                if left.shape != (H, W) or right.shape != (H, W):
+                    raise ValueError(f"frame {idx}: {left.shape} and "
+                                     f"{right.shape} images, the camera's "
+                                     f"are {(H, W)}")
+                if n_in == 0 and landed[cur] is not None:
+                    landed[cur].synchronize()
+                    landed[cur] = None
+                lb, rb = bufs[cur]
+                views[cur][0][n_in] = left        # out of the bank
+                views[cur][1][n_in] = right
+                n_in += 1
+                last = idx == n_total - 1
+                if n_in % slab == 0 and n_in < B and not last:
+                    s0 = n_in - slab
+                    slabs.append(self._upload(lb[s0:n_in], rb[s0:n_in],
+                                              copy))
+                if n_in < B and not last:
+                    continue
+                lo = chunk_idx * B
+                if n_in == B:
+                    s0 = len(slabs) * slab
+                    slabs.append(self._upload(lb[s0:], rb[s0:], copy))
+                    if card:
+                        compute = torch.cuda.current_stream(self.device)
+                        for ld, rd, ev in slabs:
+                            compute.wait_event(ev)
+                            ld.record_stream(compute)
+                            rd.record_stream(compute)
+                    lefts = torch.cat([s[0] for s in slabs])
+                    rights = torch.cat([s[1] for s in slabs])
+                else:               # partial last chunk: host arrays
+                    lefts, rights = lb[:n_in], rb[:n_in]
+                if slabs:
+                    landed[cur] = slabs[-1][2]
+                yield lefts, rights, stamps[lo:lo + n_in], n_in, None
+                slabs = []
+                chunk_idx += 1
+                n_in = 0
+                cur ^= 1
+        finally:
+            if copy is not None:
+                copy.synchronize()
+
+    def _upload(self, lefts: torch.Tensor, rights: torch.Tensor, copy):
+        """(lefts, rights, event) on the device: host rows uploaded without
+        blocking on the `copy` stream, the event recorded after them; on
+        the CPU the rows themselves (the chunk's concatenation copies
+        them before the buffer is refilled) and no event."""
+        if copy is None:
+            return lefts, rights, None
+        with torch.cuda.stream(copy):
+            ld = lefts.to(self.device, non_blocking=True)
+            rd = rights.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(copy)
+        return ld, rd, event
+
+    def _run_async(self, chunks, mapper) -> list[OdomInfo]:
+        """Dispatch each (lefts, rights, stamps, n, gts) of `chunks`, and
+        unpack it and feed its frames to `mapper` on a consumer thread
+        while the next is dispatched.  All mapper work (loop closure
+        included) completes before this returns."""
         q: queue.Queue = queue.Queue(maxsize=4)
         results: dict[int, list[OdomInfo]] = {}
         err: list[BaseException] = []
@@ -299,11 +413,18 @@ class FastSlamPipeline:
 
         t = threading.Thread(target=consumer, daemon=True)
         t.start()
-        for i, (lb, rb, stamps, n) in enumerate(staged):
-            pending = self.dispatch(lb, rb, stamps, n)
-            _put_or_raise(q, (i, pending, gts_of(i, n)), t, err)
-        _put_or_raise(q, None, t, err)
-        t.join()
+        try:
+            for i, (lefts, rights, stamps, n, gts) in enumerate(chunks):
+                pending = self.dispatch(lefts, rights, stamps, n)
+                _put_or_raise(q, (i, pending, gts), t, err)
+        finally:
+            while not err and t.is_alive():  # it may be dead, queue full
+                try:
+                    q.put(None, timeout=0.2)
+                    break
+                except queue.Full:
+                    pass
+            t.join()
         if err:
             raise err[0]
         if mapper is not None:
