@@ -17,7 +17,9 @@ the bench's 376 rows.  Two end-to-end tests check through the launch
 counters that the default configuration's chunk step, and a Mapper run
 whose loop closure fires, launch the kernels and no plain version; a
 third does so for the batch app (the per-frame path), and the speckle
-filter on the card is held to the CPU bit for bit.
+filter on the card is held to the CPU bit for bit.  Configurations outside
+K1's and K2's envelopes run the plain versions on the card and equal the
+CPU; run_ingest on the card equals run_staged on the same written frames.
 """
 
 import os
@@ -528,3 +530,74 @@ def test_out_of_envelope_runs_plain_on_the_card(pair, case):
     want = run(*cpu)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n_frames", [8, 9])
+def test_run_ingest_equals_staged_on_the_card(tmp_path, n_frames):
+    """run_ingest on the card (native decoder threads, pinned rotating
+    buffers, uploads on a copy stream) over a written 320x240 directory in
+    chunks of 3 -- whole chunks, the buffers' rotation, and a partial last
+    chunk (8 frames) or none (9) -- equals run_staged on the same frames:
+    the frames each chunk computes on, poses, inliers, lost flags and the
+    Mapper's graph; every kernel of the path runs and no plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.config import MapperConfig, SlamConfig
+    from tpuslam_torch.io.dataset import StereoImageDataset
+    from tpuslam_torch.io.synthetic import sequence_camera, write_sequence
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.mapping.mapper import Mapper
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    seq = write_sequence(str(tmp_path), n_frames=n_frames, width=320,
+                         height=240, f=250.0, speed=0.4, yaw_rate=0.002,
+                         seed=3)
+    ds = StereoImageDataset(left_dir=os.path.join(seq, "image_0"),
+                            right_dir=os.path.join(seq, "image_1"),
+                            times_path=os.path.join(seq, "times.txt"))
+    items = [ds[i] for i in range(len(ds))]
+    cam = sequence_camera(320, 240, 250.0, 0.54)
+    cfg = SlamConfig().replace(mapper=MapperConfig(map_update=3))
+    pipe = FastSlamPipeline(cam, cfg, chunk=3, capacity=384)
+    seen = []
+    dispatch = pipe.dispatch
+
+    def recording(lb, rb, st, n):
+        seen.append((torch.as_tensor(lb[:n]).cuda().clone(),
+                     torch.as_tensor(rb[:n]).cuda().clone()))
+        return dispatch(lb, rb, st, n)
+
+    pipe.dispatch = recording
+
+    def mapper():
+        mp = Mapper(cam, cfg.mapper, cfg.matching, cfg.pnp)
+        mp.async_lc = True
+        return mp
+
+    m_staged = mapper()
+    staged = pipe.run_staged(pipe.stage_chunks(items), items,
+                             mapper=m_staged, mapper_async=True)
+    seen.clear()
+    pipe.reset()
+    m_ingest = mapper()
+    _cuda.reset_counters()
+    ingest = pipe.run_ingest(
+        [os.path.join(ds.left_dir, n) for n in ds._left],
+        [os.path.join(ds.right_dir, n) for n in ds._right],
+        [it["stamp"] for it in items], mapper=m_ingest)
+    torch.cuda.synchronize()
+    assert all(_cuda.LAUNCHES[k] > 0 for k in _cuda.KERNELS)
+    assert not any(_cuda.PLAIN_CALLS.values())
+    for k, key in enumerate(("left", "right")):
+        got = torch.cat([s[k] for s in seen]).cpu().numpy()
+        np.testing.assert_array_equal(got, np.stack([it[key]
+                                                     for it in items]))
+    assert len(staged) == len(ingest) == n_frames
+    for a, b in zip(staged, ingest):
+        np.testing.assert_array_equal(a.pose, b.pose)
+        assert a.num_inliers == b.num_inliers and a.lost == b.lost
+    pa, la = m_staged.get_graph()
+    pb, lb = m_ingest.get_graph()
+    assert sorted(pa) == sorted(pb)
+    for k in pa:
+        np.testing.assert_array_equal(pa[k], pb[k])
+    assert len(la) == len(lb)

@@ -66,7 +66,11 @@ def gftt_response(img: torch.Tensor, block_size: int = 3) -> torch.Tensor:
     a = box(dx * dx) * 0.5
     b = box(dx * dy)
     c = box(dy * dy) * 0.5
-    return (a + c) - torch.sqrt((a - c) * (a - c) + b * b)
+    # the square root correctly rounded on every device, as the card's and
+    # K2's (sqrt_rn): the CPU's vectorised f32 sqrt is not, and a sqrt
+    # taken in f64 and rounded to f32 is
+    q = torch.sqrt(((a - c) * (a - c) + b * b).double()).float()
+    return (a + c) - q
 
 
 def local_max_3x3(eig: torch.Tensor) -> torch.Tensor:
