@@ -8,7 +8,8 @@ tpuslam.  Phases, each of which raises on failure:
 1. device: refuse to run without CUDA; print torch/CUDA versions and the
    card's name and power limit (nvidia-smi);
 2. build: compile the six hand-written kernels (tpuslam_torch/csrc/*.cu)
-   in parallel into build/tpuslam_torch/ and print the seconds;
+   in parallel into build/tpuslam_torch/, and the native image decoder
+   (csrc/loader.cpp, g++), and print the seconds;
 3. kernels: render the bench's 1241x376 sequence on the card, then hold
    each kernel to its plain PyTorch version at main-path shapes and time
    both (tpuslam_torch/tools/timing.py: median of 20 runs between CUDA
@@ -36,7 +37,20 @@ tpuslam.  Phases, each of which raises on failure:
    Mapper; assert finite poses and a non-empty graph;
 8. slice path: the first slice's configuration (no LR check, no refine,
    no Mapper), timed, with its own counters (K1-K4) and ATE bound;
-9. per-frame batch path: write a 61-frame out-and-back 1241x376 sequence
+9. ingest: bench.py's ingest pass -- the 120 frames written as PNGs (rows
+   filtered as libpng filters them), then FastSlamPipeline.run_ingest
+   from those files (native decoder threads, pinned rotating buffers,
+   uploads on a copy stream) with an async Mapper, once warm and once
+   timed, every counter reset just before the timed run; assert what
+   phase 5 asserts and that every frame the loop uploaded equals the
+   rendered one; print ingest fps beside phase 5's staged fps, the pure
+   host-to-device ceiling of the same bytes from pinned memory and
+   ingest_efficiency = min(1, ingest fps / ceiling fps) (bench.py:160-187),
+   both decoders' ms per image at the written mix and with every row
+   Paeth, and the largest pose difference to phase 5's timed run; then
+   two more pairs of timed runs, staged and ingest in turns, and the
+   medians of each;
+10. per-frame batch path: write a 61-frame out-and-back 1241x376 sequence
    (KITTI layout, PNGs) rendered on the card, then run the batch app
    (tpuslam_torch.cli.slam_batch.run, SlamConfig() with a small-memory
    Mapper) over it, a few frames warm and all of them timed, every counter
@@ -55,11 +69,15 @@ tpuslam.  Phases, each of which raises on failure:
    the speckle rounds, the PNG decode time and the written files' row
    filters (chosen per row as libpng and Pillow choose); then run the
    path once more over the same images with every row Paeth-filtered, as
-   Pillow filters most rows of a photograph, and print its fps.
+   Pillow filters most rows of a photograph, and print its fps.  The path
+   reads through the native prefetch ring; both decoders are timed on its
+   files, and must agree.
 
 With --spread N the main path and the per-frame path are run again with
 RANSAC seeds 1..N and the quality of each is printed (the data behind
-PERF.md's ATE bounds).
+PERF.md's ATE bounds).  With --reader-ab the per-frame path is run again
+over both filter mixes, read in turns by the native ring and by the
+Python reader it replaced (fps and spans of each).
 
 Prints fps, inliers, ATE and KITTI errors, one JSON line of per-kernel
 numbers (the harness's row with its per-phase numbers under "phases"; the
@@ -107,6 +125,9 @@ PF_ATE_BOUND_M = 0.037
 PF_OUTPUTS = ("map_poses.csv", "map_links.csv", "optimized_poses.csv",
               "slam.bt", "perf_time.csv")
 PF_SPANS = ("captureImageLR", "frontend", "odom.process", "mapper.process")
+# timed runs of each of run_staged and run_ingest in the ingest phase, in
+# turns: the host-bound path's fps spreads from run to run in one call
+INGEST_TURNS = 3
 # K6 against its plain version: f32 reduction order (tests/test_pnp.py)
 LM_TOL = dict(rvec=1e-5, tvec=1e-4, inlier_px=2.0)
 
@@ -466,7 +487,7 @@ def timed_run(pipe, staged, items, gt, what, with_mapper, n_record=0):
     log(f"# {what}: {N_FRAMES} frames {WIDTH}x{HEIGHT} in {dt:.3f} s = "
         f"{N_FRAMES / dt:.3f} fps; {fmt(q)}")
     log(f"# {what}: launches {launches}, plain calls {plain}")
-    return q, N_FRAMES / dt, launches, plain, mp, calls
+    return q, N_FRAMES / dt, launches, plain, mp, calls, infos
 
 
 def main_path_phase(camera, cfg, staged, items, gt):
@@ -476,28 +497,191 @@ def main_path_phase(camera, cfg, staged, items, gt):
     from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
     pipe = FastSlamPipeline(camera, cfg, chunk=CHUNK, capacity=CAPACITY,
                             seed=SEED)
-    q, fps, launches, plain, mapper, calls = timed_run(
+    q, fps, launches, plain, mapper, calls, infos = timed_run(
         pipe, staged, items, gt, "main path", with_mapper=True, n_record=2)
+    check_bench_run("main path", q, launches, plain, mapper)
+    # the VO step refines once per frame: call 1 is frame 1's
+    return mapper, launches, fps, calls[1], infos
+
+
+def check_bench_run(what, q, launches, plain, mapper):
+    """bench.py's run: every kernel of the main path launched, no plain
+    version and no tool, a Mapper node per frame and words, bench.py:240's
+    gates and ATE within ATE_BOUND_M."""
+    from tpuslam_torch.kernels import _cuda
     missing = [k for k in _cuda.KERNELS if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
+        raise AssertionError(f"kernels not launched on the {what}: "
                              f"{missing}")
     if any(v != 0 for v in plain.values()):
-        raise AssertionError(f"a plain version ran: {plain}")
+        raise AssertionError(f"{what}: a plain version ran: {plain}")
     if any(launches[k] != 0 for k in _cuda.TOOLS):
-        raise AssertionError(f"a tool ran on the main path: {launches}")
-    log(f"# mapper: {len(mapper.nodes)} nodes, {mapper.vwd._count} words, "
-        f"{len(mapper.loop_closures)} loop closures")
+        raise AssertionError(f"a tool ran on the {what}: {launches}")
+    log(f"# {what}: mapper {len(mapper.nodes)} nodes, {mapper.vwd._count} "
+        f"words, {len(mapper.loop_closures)} loop closures")
     if len(mapper.nodes) != N_FRAMES or not mapper.vwd._count > 0:
-        raise AssertionError("the Mapper lacks a node per frame or words")
+        raise AssertionError(f"{what}: the Mapper lacks a node per frame or "
+                             f"words")
     if q["lost"] > MAX_LOST or q["median_inliers"] < MIN_MEDIAN_INLIERS \
             or not q["t_err"] <= MAX_T_ERR_PCT:
-        raise AssertionError(f"bench gates failed: {fmt(q)}")
+        raise AssertionError(f"{what}: bench gates failed: {fmt(q)}")
     if not q["ate"] <= ATE_BOUND_M:
-        raise AssertionError(f"ATE {q['ate']} m above the bound "
+        raise AssertionError(f"{what}: ATE {q['ate']} m above the bound "
                              f"{ATE_BOUND_M} m")
-    # the VO step refines once per frame: call 1 is frame 1's
-    return mapper, launches, fps, calls[1]
+
+
+def write_pngs(paths_imgs, row_filter=None):
+    """Write each (path, (H, W) uint8 image) as a PNG (rows filtered as
+    io/png.py's encoder says) on 8 threads (zlib and numpy release the
+    GIL); returns the seconds taken."""
+    from concurrent.futures import ThreadPoolExecutor
+    from tpuslam_torch.io import png
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda pi: png.write_png(*pi, row_filter=row_filter),
+                      paths_imgs))
+    return time.perf_counter() - t0
+
+
+def decode_ms(paths):
+    """Median ms per image of the native decoder (tsl_decode) and of
+    io/png.py's Python decoder over the files `paths` (host CPU)."""
+    import statistics
+    from tpuslam_torch.io import png
+    from tpuslam_torch.io.native_loader import decode_image
+    out = {}
+    for name, fn in (("native", decode_image), ("python", png.read_png)):
+        ms = []
+        for p in paths:
+            t0 = time.perf_counter()
+            fn(p)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(ms)
+    return out
+
+
+def ingest_phase(workdir, camera, cfg, lefts, rights, stamps, gt, staged,
+                 items, staged_infos, staged_fps):
+    """bench.py's ingest pass (bench.py:139-190): the bench sequence's
+    frames written as PNGs (rows filtered as libpng filters them), then
+    FastSlamPipeline.run_ingest with an async Mapper from those files, once
+    warm and once timed, every counter reset just before the timed run;
+    assert what main_path_phase asserts, and that every frame the loop
+    uploaded equals the rendered one; print ingest fps beside the staged
+    fps, the pure host-to-device ceiling of the same bytes from pinned
+    memory and ingest_efficiency, the decode ms per image of both decoders
+    at the written mix and with every row Paeth, and the largest pose
+    difference to run_staged's run.  Then INGEST_TURNS - 1 more pairs of
+    timed runs (staged, ingest), so that the two alternate after
+    main_path_phase's staged run, and the medians of each."""
+    import os
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.mapping.mapper import Mapper
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+
+    seq = os.path.join(workdir, "bench_seq")
+    host = (lefts.cpu().numpy(), rights.cpu().numpy())
+    paths = []
+    for sub, imgs in zip(("image_0", "image_1"), host):
+        os.makedirs(os.path.join(seq, sub))
+        paths.append([os.path.join(seq, sub, f"{i:06d}.png")
+                      for i in range(N_FRAMES)])
+    took = write_pngs([(p, img) for ps, imgs in zip(paths, host)
+                       for p, img in zip(ps, imgs)])
+    log(f"# ingest: wrote {2 * N_FRAMES} PNGs of {WIDTH}x{HEIGHT} in "
+        f"{took:.2f} s (8 host threads)")
+    paeth = [os.path.join(workdir, f"paeth{i}.png") for i in range(20)]
+    write_pngs([(p, host[i % 2][i // 2]) for i, p in enumerate(paeth)],
+               row_filter=4)
+    dec = decode_ms(paths[0][:20] + paths[1][:20])
+    dec_paeth = decode_ms(paeth)
+    log(f"# ingest: decode ms per {WIDTH}x{HEIGHT} image (median of 40 / "
+        f"20, host CPU): native {dec['native']:.3f} / "
+        f"{dec_paeth['native']:.3f}, Python {dec['python']:.3f} / "
+        f"{dec_paeth['python']:.3f} (the written mix / every row Paeth)")
+
+    pipe = FastSlamPipeline(camera, cfg, chunk=CHUNK, capacity=CAPACITY,
+                            seed=SEED)
+    seen = []
+    dispatch = pipe.dispatch
+
+    def recording(lb, rb, st, n):
+        # copies on the compute stream, after the uploads it waits for:
+        # what the chunk computes on
+        seen.append((torch.as_tensor(lb[:n]).clone(),
+                     torch.as_tensor(rb[:n]).clone()))
+        return dispatch(lb, rb, st, n)
+
+    pipe.dispatch = recording
+
+    def run():
+        seen.clear()
+        pipe.reset()
+        mp = Mapper(camera, cfg.mapper, cfg.matching, cfg.pnp)
+        mp.async_lc = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infos = pipe.run_ingest(*paths, stamps, mapper=mp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = [torch.cat([s[k].to("cuda") for s in seen]) for k in (0, 1)]
+        if not (torch.equal(got[0], lefts) and torch.equal(got[1], rights)):
+            raise AssertionError("ingest: a frame the loop uploaded differs "
+                                 "from the rendered one")
+        return infos, dt, mp
+
+    _, dt, _ = run()
+    log(f"# ingest: warm run {dt:.2f} s")
+    _cuda.reset_counters()
+    infos, dt, mapper = run()
+    launches, plain = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+    q = quality(infos, gt)
+    fps = N_FRAMES / dt
+    log(f"# ingest: {N_FRAMES} frames {WIDTH}x{HEIGHT} from PNG files in "
+        f"{dt:.3f} s = {fps:.3f} fps (staged, same call: {staged_fps:.3f} "
+        f"fps); {fmt(q)}; every uploaded frame equals the rendered one")
+    log(f"# ingest: launches {launches}, plain calls {plain}")
+    check_bench_run("ingest path", q, launches, plain, mapper)
+
+    # the link's ceiling: the same bytes uploaded chunk by chunk from
+    # pinned memory, nothing decoded or computed
+    pinned = [torch.from_numpy(h).pin_memory() for h in host]
+    sink = [p[:CHUNK].to("cuda", non_blocking=True) for p in pinned]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sink = [p[lo:lo + CHUNK].to("cuda", non_blocking=True)
+            for lo in range(0, N_FRAMES, CHUNK) for p in pinned]
+    torch.cuda.synchronize()
+    ceiling_fps = N_FRAMES / (time.perf_counter() - t0)
+    del sink
+    nbytes = sum(h.nbytes for h in host)
+    log(f"# ingest: pure host-to-device ceiling {ceiling_fps:.1f} fps "
+        f"({nbytes / 1e6:.1f} MB from pinned memory, "
+        f"{nbytes / 1e9 * ceiling_fps / N_FRAMES:.2f} GB/s); "
+        f"ingest_efficiency {min(1.0, fps / ceiling_fps):.6f}")
+    diff = max(float(np.abs(a.pose - b.pose).max())
+               for a, b in zip(infos, staged_infos))
+    log(f"# ingest: largest pose difference to run_staged's timed run "
+        f"{diff:.3g} (same frames, same seed)")
+
+    turns = {"staged": [staged_fps], "ingest": [fps]}
+    for _ in range(INGEST_TURNS - 1):
+        pipe.reset()
+        mp = Mapper(camera, cfg.mapper, cfg.matching, cfg.pnp)
+        mp.async_lc = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run_staged(staged, items, mapper=mp, mapper_async=True)
+        torch.cuda.synchronize()
+        turns["staged"].append(N_FRAMES / (time.perf_counter() - t0))
+        turns["ingest"].append(N_FRAMES / run()[1])
+    med = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
+    log("# ingest: fps in turns (staged, ingest, ...) " + ", ".join(
+        f"{a:.3f}, {b:.3f}" for a, b in zip(turns["staged"],
+                                            turns["ingest"])) +
+        f"; medians staged {med['staged']:.3f}, ingest {med['ingest']:.3f}"
+        f", ingest / staged {med['ingest'] / med['staged']:.4f}")
+    return fps
 
 
 def post_loop_phase(mapper, camera, cfg, gt):
@@ -539,7 +723,7 @@ def slice_phase(camera, staged, items, gt):
                                pnp=PnPConfig(refine_iterations=0))
     pipe = FastSlamPipeline(camera, cfg, chunk=CHUNK, capacity=CAPACITY,
                             seed=SEED)
-    q, fps, launches, plain, _, _ = timed_run(
+    q, fps, launches, plain, _, _, _ = timed_run(
         pipe, staged, items, gt, "slice path", with_mapper=False)
     need = ("stereo_bm", "gftt", "orb", "median")
     if any(launches[k] == 0 for k in need) or any(plain.values()):
@@ -671,6 +855,7 @@ def per_frame_phase(workdir, rows):
     import statistics
     from tpuslam_torch.cli import slam_batch
     from tpuslam_torch.io import png
+    from tpuslam_torch.io.native_loader import decode_image
     from tpuslam_torch.io.synthetic import out_and_back_trajectory, \
         write_sequence
     from tpuslam_torch.kernels import _cuda, pnp as P, stereo_bm as BM
@@ -687,7 +872,7 @@ def per_frame_phase(workdir, rows):
         f"PNG-encoded) in {time.perf_counter() - t0:.2f} s")
     files = [os.path.join(seq, d, f) for d in ("image_0", "image_1")
              for f in sorted(os.listdir(os.path.join(seq, d)))]
-    dec, mix, images = [], np.zeros(5, np.int64), {}
+    dec, native, mix, images = [], [], np.zeros(5, np.int64), {}
     for path in files:
         with open(path, "rb") as f:
             data = f.read()
@@ -695,11 +880,17 @@ def per_frame_phase(workdir, rows):
         t0 = time.perf_counter()
         images[os.path.relpath(path, seq)] = png.decode(data)
         dec.append((time.perf_counter() - t0) * 1e3)
-    log(f"# per-frame path: PNG decode {statistics.median(dec):.3f} ms per "
-        f"{WIDTH}x{HEIGHT} image (median of {len(dec)}; max "
-        f"{max(dec):.3f}; host CPU); row filters None/Sub/Up/Average/Paeth "
-        f"{'/'.join(str(int(v)) for v in mix)} (chosen per row as libpng "
-        f"and Pillow choose)")
+        t0 = time.perf_counter()
+        img = decode_image(path)
+        native.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(img, images[os.path.relpath(path, seq)]):
+            raise AssertionError(f"PNG: the decoders differ on {path}")
+    log(f"# per-frame path: PNG decode per {WIDTH}x{HEIGHT} image (median "
+        f"of {len(dec)}; host CPU): native {statistics.median(native):.3f} "
+        f"ms (the path's reader), Python {statistics.median(dec):.3f} ms "
+        f"(max {max(dec):.3f}); the two equal; row filters None/Sub/Up/"
+        f"Average/Paeth {'/'.join(str(int(v)) for v in mix)} (chosen per "
+        f"row as libpng and Pillow choose)")
 
     cfg = pf_config()
     t0 = time.perf_counter()
@@ -828,18 +1019,23 @@ def pf_paeth_phase(seq, images, workdir, cfg, first):
     import statistics
     from tpuslam_torch.cli import slam_batch
     from tpuslam_torch.io import png
+    from tpuslam_torch.io.native_loader import decode_image
     dst = os.path.join(workdir, "seq_paeth")
     shutil.copytree(seq, dst, ignore=shutil.ignore_patterns("*.png"))
-    dec = []
+    dec, native = [], []
     for rel, img in images.items():
         data = png.encode(img, row_filter=4)
         t0 = time.perf_counter()
         back = png.decode(data)
         dec.append((time.perf_counter() - t0) * 1e3)
-        if not np.array_equal(back, img):
-            raise AssertionError(f"PNG: {rel} Paeth-filtered decodes wrong")
         with open(os.path.join(dst, rel), "wb") as f:
             f.write(data)
+        t0 = time.perf_counter()
+        back_native = decode_image(os.path.join(dst, rel))
+        native.append((time.perf_counter() - t0) * 1e3)
+        if not (np.array_equal(back, img) and
+                np.array_equal(back_native, img)):
+            raise AssertionError(f"PNG: {rel} Paeth-filtered decodes wrong")
     out = os.path.join(workdir, "out_paeth")
     res = slam_batch.run(dst, cfg, quiet=True, out_dir=out)
     spans = span_totals(os.path.join(out, "perf_time.csv"))
@@ -847,9 +1043,11 @@ def pf_paeth_phase(seq, images, workdir, cfg, first):
     same = np.array_equal(res["vo_poses"], first["vo_poses"])
     log(f"# per-frame path, every row Paeth: odometry poses "
         f"{'identical to' if same else 'differ from'} the first run's")
-    log(f"# per-frame path, every row Paeth: PNG decode "
-        f"{statistics.median(dec):.3f} ms per image (median of {len(dec)};"
-        f" host CPU); {res['fps']:.3f} fps (the written mix: "
+    log(f"# per-frame path, every row Paeth: PNG decode per image "
+        f"(median of {len(dec)}; host CPU): native "
+        f"{statistics.median(native):.3f} ms (the path's reader), Python "
+        f"{statistics.median(dec):.3f} ms; {res['fps']:.3f} fps (the "
+        f"written mix: "
         f"{first['fps']:.3f}); ATE={res['ate_m']:.4f} m (the written mix: "
         f"{first['ate_m']:.4f} m); span totals " + ", ".join(
             f"{k} {spans.get(k, 0.0):.1f} ms ({spans.get(k, 0.0) / n:.2f} "
@@ -857,6 +1055,66 @@ def pf_paeth_phase(seq, images, workdir, cfg, first):
     if n != first["n_nodes"] or not res["ate_m"] <= PF_ATE_BOUND_M:
         raise AssertionError(f"per-frame path, every row Paeth: nodes {n}, "
                              f"ATE {res['ate_m']} m")
+
+
+def python_reader(self, start=0, end=None, n_banks=4, n_threads=2):
+    """StereoImageDataset.prefetch_iter as it read before the native
+    decoder: one Python thread decodes two items ahead through io/png.py
+    (its Paeth and Average rows pixel by pixel, holding the GIL)."""
+    import os
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+    from tpuslam_torch.io import png
+
+    def item(i):
+        return {"id": i + 1, "stamp": self.stamp(i),
+                "left": png.read_png(os.path.join(self.left_dir,
+                                                  self._left[i])),
+                "right": png.read_png(os.path.join(self.right_dir,
+                                                   self._right[i])),
+                "ground_truth": self.ground_truth(i)}
+
+    end = len(self) if end is None else min(end, len(self))
+    with ThreadPoolExecutor(1) as pool:
+        pending = deque(pool.submit(item, i)
+                        for i in range(start, min(start + 2, end)))
+        nxt = start + len(pending)
+        while pending:
+            out = pending.popleft().result()
+            if nxt < end:
+                pending.append(pool.submit(item, nxt))
+                nxt += 1
+            yield out
+
+
+def pf_reader_phase(workdir):
+    """The per-frame path over the written files and over the every-row
+    Paeth files, each read by the native ring and by the Python reader in
+    turns (native, Python, Python, native): fps and the span totals."""
+    import os
+    from tpuslam_torch.cli import slam_batch
+    from tpuslam_torch.io.dataset import StereoImageDataset
+    native = StereoImageDataset.prefetch_iter
+    for mix, seq in (("written mix", "seq"), ("every row Paeth",
+                                              "seq_paeth")):
+        fps = {"native": [], "python": []}
+        for k, reader in enumerate(("native", "python", "python",
+                                    "native")):
+            StereoImageDataset.prefetch_iter = native \
+                if reader == "native" else python_reader
+            out = os.path.join(workdir, f"reader{k}")
+            try:
+                res = slam_batch.run(os.path.join(workdir, seq), pf_config(),
+                                     quiet=True, out_dir=out)
+            finally:
+                StereoImageDataset.prefetch_iter = native
+            fps[reader].append(res["fps"])
+            spans = span_totals(os.path.join(out, "perf_time.csv"))
+            log(f"# reader A/B, {mix}: {reader} {res['fps']:.3f} fps; per "
+                f"frame " + ", ".join(f"{k} {v / res['n_nodes']:.2f} ms"
+                                      for k, v in spans.items()))
+        log(f"# reader A/B, {mix}: native {sum(fps['native']) / 2:.3f} fps,"
+            f" Python {sum(fps['python']) / 2:.3f} fps (means of two)")
 
 
 def pf_spread_phase(seq, workdir, n):
@@ -898,11 +1156,13 @@ def spread_phase(camera, cfg, staged, items, gt, n):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--spread", type=int, default=0)
+    ap.add_argument("--reader-ab", action="store_true")
     args = ap.parse_args()
     smi = device_phase()
     import tpuslam_torch  # noqa: F401  (applies the precision pin)
     from tpuslam_torch.kernels import _cuda
     from tpuslam_torch.config import SlamConfig
+    from tpuslam_torch.io import native_loader
     from tpuslam_torch.io.synthetic import make_sequence, sequence_camera
     from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
     from tpuslam_torch.tools.timing import floor_ms
@@ -911,8 +1171,11 @@ def main():
     took = _cuda.build_all()
     for name in _cuda.KERNELS + _cuda.TOOLS:
         _cuda.launcher(name)
-    log(f"# build: {time.perf_counter() - t0:.2f} s "
-        f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
+    t1 = time.perf_counter()
+    native_loader.get_lib()
+    log(f"# build: {t1 - t0:.2f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())}); "
+        f"native decoder (g++) {time.perf_counter() - t1:.2f} s")
 
     cfg = SlamConfig()       # bench.py's configuration, unchanged
     t0 = time.perf_counter()
@@ -933,18 +1196,23 @@ def main():
                   ground_truth=gt[i]) for i in range(N_FRAMES)]
     staged = FastSlamPipeline(camera, cfg, chunk=CHUNK,
                               capacity=CAPACITY).stage_chunks(items)
-    mapper, launches, fps, frame1_args = main_path_phase(
+    mapper, launches, fps, frame1_args, infos = main_path_phase(
         camera, cfg, staged, items, gt)
     lm_phase(rows, frame1_args, camera, cfg)
     post_loop_phase(mapper, camera, cfg, gt)
     slice_fps = slice_phase(camera, staged, items, gt)
     speckle_check(*chunk, cfg)
     with tempfile.TemporaryDirectory() as workdir:
+        ingest_fps = ingest_phase(workdir, camera, cfg, lefts, rights,
+                                  stamps, gt, staged, items, infos, fps)
         seq, pf_fps, pf_launches = per_frame_phase(workdir, rows)
-        log(f"# fps: default configuration + Mapper {fps:.3f}, slice "
+        log(f"# fps: default configuration + Mapper {fps:.3f}, the same "
+            f"from PNG files (run_ingest) {ingest_fps:.3f}, slice "
             f"{slice_fps:.3f}, per-frame batch path {pf_fps:.3f}")
         log("# per-frame path launches per kernel: " + json.dumps(
             {k: pf_launches[k] for k in _cuda.KERNELS}))
+        if args.reader_ab:
+            pf_reader_phase(workdir)
         if args.spread:
             pf_spread_phase(seq, workdir, args.spread)
     if args.spread:
