@@ -294,7 +294,7 @@ def test_run_ingest_builds_the_same_graph(ingest_runs):
     assert m_staged.vwd._count == m_ingest.vwd._count > 0
 
 
-def test_run_ingest_refuses_other_image_sizes(ingest_runs, png_dir):
+def test_run_ingest_refuses_other_image_sizes(png_dir):
     """Files whose size is not the camera's are refused by name."""
     from tpuslam_torch.config import SlamConfig
     from tpuslam_torch.io.synthetic import sequence_camera

@@ -50,7 +50,7 @@ def load_gray(path: str, do_resize: bool = False) -> np.ndarray:
     with Pillow's bilinear filter."""
     with open(path, "rb") as f:
         head = f.read(64)
-    if head.startswith(png.SIGNATURE) and png._layout(head)[2] != 1:
+    if head.startswith(png.SIGNATURE) and png.layout(head)[2] != 1:
         img = png.luma(png.read_png(path))
     else:
         img = decode_image(path)

@@ -44,7 +44,7 @@ def _chunks(data: bytes):
             return
 
 
-def _layout(data: bytes):
+def layout(data: bytes):
     """(width, height, bytes per pixel) of an 8-bit non-interlaced PNG of
     colour type 0, 2, 4 or 6; raises for any other kind."""
     kind, ihdr = next(_chunks(data))
@@ -62,7 +62,7 @@ def _layout(data: bytes):
 def _header(data: bytes):
     """(width, height) of a PNG that `decode` reads; raises for any other
     kind."""
-    return _layout(data)[:2]
+    return layout(data)[:2]
 
 
 def image_size(path: str) -> tuple[int, int]:
@@ -102,7 +102,7 @@ def _paeth_row(raw: list, prior: list) -> list:
 def decode(data: bytes) -> np.ndarray:
     """PNG file bytes -> (H, W) uint8 image for gray, (H, W, C) for the
     colour types of C = 3 (RGB), 2 (gray+alpha) and 4 (RGBA) channels."""
-    w, h, ch = _layout(data)
+    w, h, ch = layout(data)
     stride = w * ch
     idat = b"".join(p for k, p in _chunks(data) if k == b"IDAT")
     rows = np.frombuffer(zlib.decompress(idat), np.uint8)
@@ -197,7 +197,7 @@ def encode(img: np.ndarray, level: int = 6,
 
 def row_filters(data: bytes) -> np.ndarray:
     """The filter type (0-4) of every row of a PNG file's bytes."""
-    w, h, ch = _layout(data)
+    w, h, ch = layout(data)
     idat = b"".join(p for k, p in _chunks(data) if k == b"IDAT")
     return np.frombuffer(zlib.decompress(idat),
                          np.uint8)[::w * ch + 1][:h].copy()

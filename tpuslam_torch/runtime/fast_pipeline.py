@@ -277,14 +277,9 @@ class FastSlamPipeline:
             return [b.get("ground_truth")
                     for b in items[i * self.chunk:i * self.chunk + n]]
 
-        if not mapper_async:
-            return self._double_buffered(
-                ((lb, rb, stamps, n, gts_of(i, n))
-                 for i, (lb, rb, stamps, n) in enumerate(staged)), mapper)
-
-        return self._run_async(
-            ((lb, rb, stamps, n, gts_of(i, n))
-             for i, (lb, rb, stamps, n) in enumerate(staged)), mapper)
+        run = self._run_async if mapper_async else self._double_buffered
+        return run(((lb, rb, stamps, n, gts_of(i, n))
+                    for i, (lb, rb, stamps, n) in enumerate(staged)), mapper)
 
     def run_ingest(self, left_paths: list[str], right_paths: list[str],
                    stamps, mapper=None) -> list[OdomInfo]:
