@@ -18,7 +18,8 @@ counters that the default configuration's chunk step, and a Mapper run
 whose loop closure fires, launch the kernels and no plain version; a
 third does so for the batch app (the per-frame path), and the speckle
 filter on the card is held to the CPU bit for bit.  Configurations outside
-K1's and K2's envelopes run the plain versions on the card and equal the
+K1's tiled kernel run in its wide kernel and equal its plain twin; GFTT
+outside K2's block size runs the plain version on the card and equals the
 CPU; run_ingest on the card equals run_staged on the same written frames.
 """
 
@@ -496,39 +497,65 @@ def test_batch_app_runs_kernels_and_closes_a_loop(tmp_path):
     assert np.isfinite(res["ate_m"]) and res["n_occupied_voxels"] > 0
 
 
-# configurations outside K1's and K2's envelopes (tpuslam computes each):
-# kernel -> StereoBMConfig keywords, or GFTT's block size
-OUT_OF_ENVELOPE = {"bm_ndisp32": dict(num_disparities=32),
-                   "bm_block33": dict(prefilter_cap=15, block_size=33),
-                   "bm_cost": dict(prefilter_cap=63, block_size=23),
-                   "gftt_block5": 5}
+# configurations outside K1's tiled kernel, which K1 runs in its wide
+# kernel (the reference's strip kernel takes each): StereoBMConfig keywords
+K1_WIDE = {"ndisp32": dict(num_disparities=32),
+           "ndisp128": dict(num_disparities=128, min_disparity=-5),
+           "block33": dict(prefilter_cap=15, block_size=33),
+           "block20": dict(block_size=20),
+           "block1": dict(block_size=1, uniqueness_ratio=0),
+           "cost": dict(prefilter_cap=63, block_size=23),
+           "sawtooth_cost": dict(prefilter_cap=63, block_size=25)}
+
+
+@pytest.mark.parametrize("case", list(K1_WIDE))
+def test_k1_wide_kernel(pair, case):
+    """K1 runs a configuration its tiled kernel cannot take in its wide
+    kernel: equal to its plain twin on the card, outputs and min-SAD (past
+    uint16 on the sawtooth pair); and stereo_bm on the card, K1 and K5
+    launched and no plain version, equals stereo_bm on the CPU."""
+    from tpuslam_torch.config import StereoBMConfig
+    from tpuslam_torch.kernels import _cuda, stereo_bm as T
+    cfg = StereoBMConfig(**K1_WIDE[case])
+    assert T.k1_tiled_refusal(cfg) is not None
+    args = _sawtooth_pair() if case == "sawtooth_cost" else pair
+    _cuda.reset_counters()
+    kd, ks = T.stereo_bm_cuda(*args, cfg)
+    pd, ps = T.stereo_bm_plain(*args, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ks, ps)
+    if case == "sawtooth_cost":
+        assert int(ps.max()) > 65535
+    else:
+        assert (pd >= 0).float().mean() > 0.05
+    _cuda.reset_counters()
+    got = T.stereo_bm(*args, cfg)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["stereo_bm"] == 1 and _cuda.LAUNCHES["lr_check"] == 1
+    assert not any(_cuda.PLAIN_CALLS.values())
+    assert torch.equal(got.cpu(), T.stereo_bm(*(t.cpu() for t in args), cfg))
+
+
+# a configuration outside K2's envelope (tpuslam computes it on its XLA
+# path): GFTT's block size
+OUT_OF_ENVELOPE = {"gftt_block5": 5}
 
 
 @pytest.mark.parametrize("case", list(OUT_OF_ENVELOPE))
 def test_out_of_envelope_runs_plain_on_the_card(pair, case):
-    """A configuration that K1 or K2 refuses runs the plain version on the
+    """A configuration that K2 refuses runs the plain version on the
     card, counted in PLAIN_CALLS and never launched, and equals the same
-    call on the CPU (the LR check still runs K5 on the card)."""
-    from tpuslam_torch.config import StereoBMConfig
-    from tpuslam_torch.kernels import _cuda, gftt as G, stereo_bm as T
-    cpu = tuple(t.cpu() for t in pair)
-    if case.startswith("bm"):
-        cfg = StereoBMConfig(**OUT_OF_ENVELOPE[case])
-        assert T.k1_refusal(cfg) is not None
-        run, name = (lambda lb, rb: (T.stereo_bm(lb, rb, cfg),)), \
-            "stereo_bm"
-    else:
-        assert G.k2_refusal(OUT_OF_ENVELOPE[case]) is not None
-        run, name = (lambda lb, rb: G.gftt_candidates(
-            lb, 0.01, OUT_OF_ENVELOPE[case], 4096)), "gftt"
+    call on the CPU."""
+    from tpuslam_torch.kernels import _cuda, gftt as G
+    assert G.k2_refusal(OUT_OF_ENVELOPE[case]) is not None
+
+    def run(img):
+        return G.gftt_candidates(img, 0.01, OUT_OF_ENVELOPE[case], 4096)
     _cuda.reset_counters()
-    got = run(*pair)
+    got = run(pair[0])
     torch.cuda.synchronize()
-    assert _cuda.PLAIN_CALLS[name] == 1 and _cuda.LAUNCHES[name] == 0
-    if name == "stereo_bm":
-        assert _cuda.LAUNCHES["lr_check"] == 1
-    want = run(*cpu)
-    for a, b in zip(got, want):
+    assert _cuda.PLAIN_CALLS["gftt"] == 1 and _cuda.LAUNCHES["gftt"] == 0
+    for a, b in zip(got, run(pair[0].cpu())):
         assert torch.equal(a.cpu(), b)
 
 

@@ -140,10 +140,9 @@ def test_nms_small_capacity_and_cap():
 @pytest.mark.parametrize("block, inside", [(3, True), (5, False)])
 def test_dispatch_choice_on_the_card(block, inside):
     """gftt_candidates sends a CUDA image to K2 exactly when k2_refusal is
-    None (block 3), through the predicate it shares with the StereoBM
-    dispatcher (_cuda.on_kernel); another block size takes the plain path
-    on the card; a CPU image always the plain path, which is tpuslam's XLA
-    path at that block size."""
+    None (block 3), through _cuda.on_kernel; another block size takes the
+    plain path on the card; a CPU image always the plain path, which is
+    tpuslam's XLA path at that block size."""
     from types import SimpleNamespace
     from tpuslam_torch.kernels import _cuda
     assert (T.k2_refusal(block) is None) == inside

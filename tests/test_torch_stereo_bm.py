@@ -127,8 +127,11 @@ def _c1_pair():
 def test_minsad_wider_than_int16():
     """Min-SAD above 32767 reaches the left-right check unwrapped: the
     port's stereo_bm equals tpuslam's bit for bit (with an int16 min-SAD
-    it differed at 4 pixels), and K1, whose costs are uint16, refuses the
-    configuration before any build or launch."""
+    it differed at 4 pixels).  K1's tiled kernel, whose costs are uint16,
+    cannot take the configuration, so K1 runs it in its wide kernel (int32
+    costs; tests/test_torch_cuda.py::test_k1_wide_kernel), and the phase
+    harness, which cuts the tiled kernel, refuses it before any build or
+    launch."""
     from tpuslam_torch.kernels import _cuda
     left, right = _c1_pair()
     kw = dict(prefilter_cap=63, block_size=25)
@@ -141,27 +144,32 @@ def test_minsad_wider_than_int16():
                       with_speckle=False)[0].numpy(), ref)
     minsad = T.stereo_bm_plain(lt, rt, StereoBMConfig(**kw))[1]
     assert minsad.dtype == torch.int32 and int(minsad.max()) > 32767
+    assert isinstance(T.k1_tiled_refusal(StereoBMConfig(**kw)), ValueError)
     with pytest.raises(ValueError, match="uint16 cost limit"):
-        T.stereo_bm_cuda(lt, rt, StereoBMConfig(**kw))
+        T.stereo_bm_phase_cuda(lt, rt, StereoBMConfig(**kw), "full")
     assert _cuda.LAUNCHES["stereo_bm"] == 0
+    assert _cuda.LAUNCHES["stereo_bm_phase"] == 0
 
 
 @pytest.mark.parametrize("cap,block,accepted", [
     (63, 21, True), (63, 23, False), (31, 31, True), (34, 31, True),
     (35, 31, False)])
 def test_k1_cost_limit(cap, block, accepted):
-    """K1 takes a configuration exactly when 2 * cap * block**2 <= 65535
-    (34 * 2 * 961 = 65348, 35 * 2 * 961 = 67270), and says so before it
-    looks at the tensors: an accepted one goes on to refuse CPU tensors."""
+    """K1's tiled kernel takes a configuration exactly when 2 * cap *
+    block**2 <= 65535 (34 * 2 * 961 = 65348, 35 * 2 * 961 = 67270); the
+    phase harness, which cuts that kernel, says so before it looks at the
+    tensors.  K1 itself takes both (the others in its wide kernel), so it,
+    like an accepted harness call, goes on to refuse CPU tensors."""
     from tpuslam_torch.kernels import _cuda
     img = torch.zeros((1, 40, 48), dtype=torch.uint8)
     cfg = StereoBMConfig(prefilter_cap=cap, block_size=block)
+    assert (T.k1_tiled_refusal(cfg) is None) == accepted
     _cuda.reset_counters()
-    for fn in (T.stereo_bm_cuda,
-               lambda a, b, c: T.stereo_bm_phase_cuda(a, b, c, "vbox")):
-        with pytest.raises(ValueError, match="CUDA tensor" if accepted
-                           else "uint16 cost limit"):
-            fn(img, img, cfg)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        T.stereo_bm_cuda(img, img, cfg)
+    with pytest.raises(ValueError, match="CUDA tensor" if accepted
+                       else "uint16 cost limit"):
+        T.stereo_bm_phase_cuda(img, img, cfg, "vbox")
     assert sum(_cuda.LAUNCHES.values()) == 0
 
 
@@ -422,33 +430,45 @@ def test_probe_needs_the_card(monkeypatch):
     assert [b for b, _ in added.values()] == [4, 6, 0, 0, 0, 0, 0]
 
 
-# configurations outside kernel K1's envelope (tpuslam computes each), and
-# the default one inside it: (StereoBMConfig keywords, K1 takes it)
+# configurations outside kernel K1's tiled kernel (tpuslam's strip kernel
+# computes each), and the default one inside it: (StereoBMConfig keywords,
+# the tiled kernel takes it)
 K1_ENVELOPE = {"default": ({}, True),
                "ndisp32": (dict(num_disparities=32), False),
                "block33": (dict(prefilter_cap=15, block_size=33), False),
-               "cost": (dict(prefilter_cap=63, block_size=23), False)}
+               "cost": (dict(prefilter_cap=63, block_size=23), False),
+               "block20": (dict(block_size=20), False)}
 
 
 @pytest.mark.parametrize("case", list(K1_ENVELOPE))
 def test_dispatch_choice_on_the_card(monkeypatch, case):
-    """The StereoBM dispatcher sends a CUDA tensor to K1 exactly when
-    k1_refusal is None (the predicate it shares with the GFTT dispatcher
-    is _cuda.on_kernel), else to the plain version on the card; a CPU
-    tensor always to the plain version.  The choice is read with a
-    stand-in CUDA tensor and recording twins, so nothing is built."""
+    """The StereoBM dispatcher sends every CUDA tensor to kernel K1 and
+    every CPU tensor to the plain version; K1 runs its tiled kernel
+    exactly where k1_tiled_refusal is None, else its wide kernel.  Read on
+    the CPU with a stand-in CUDA tensor and recording twins, and with K1's
+    launcher and its CUDA checks stood in for, so nothing is built."""
+    import contextlib
     from types import SimpleNamespace
     from tpuslam_torch.kernels import _cuda
-    kw, inside = K1_ENVELOPE[case]
+    kw, tiled = K1_ENVELOPE[case]
     cfg = StereoBMConfig(disp12_max_diff=-1, **kw)
-    assert (T.k1_refusal(cfg) is None) == inside
+    assert (T.k1_tiled_refusal(cfg) is None) == tiled
     called = []
-    monkeypatch.setattr(T, "stereo_bm_cuda",
-                        lambda *a: called.append("kernel") or (1, 2))
-    monkeypatch.setattr(T, "stereo_bm_plain",
-                        lambda *a: called.append("plain") or (1, 2))
-    card = SimpleNamespace(is_cuda=True)
-    T.stereo_bm_lr(card, card, cfg)
-    T.stereo_bm_lr(torch.zeros(1, 4, 4, dtype=torch.uint8), None, cfg)
-    assert called == ["kernel" if inside else "plain", "plain"]
-    assert _cuda.on_kernel(card, T.k1_refusal(cfg)) == inside
+    with monkeypatch.context() as m:
+        m.setattr(T, "stereo_bm_cuda",
+                  lambda *a: called.append("kernel") or (1, 2))
+        m.setattr(T, "stereo_bm_plain",
+                  lambda *a: called.append("plain") or (1, 2))
+        card = SimpleNamespace(is_cuda=True)
+        T.stereo_bm_lr(card, card, cfg)
+        T.stereo_bm_lr(torch.zeros(1, 4, 4, dtype=torch.uint8), None, cfg)
+    assert called == ["kernel", "plain"]
+    launched = []
+    monkeypatch.setattr(_cuda, "expect", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(_cuda, "launch",
+                        lambda name, *a: launched.append((name, a[-2:])))
+    img = torch.zeros((1, 40, 48), dtype=torch.uint8)
+    T.stereo_bm_cuda(img, img, cfg)
+    assert launched == [("stereo_bm", (cfg.num_disparities, int(not tiled)))]

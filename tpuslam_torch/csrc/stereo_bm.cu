@@ -38,11 +38,21 @@
 // below the cost limit) so that four planes fit the 48 KB of static
 // shared memory.  The 64 costs of each pixel stay in shared memory as
 // uint16 for the winner, uniqueness and subpixel epilogue: a cost is at
-// most 2 * prefilter_cap * (2r+1)^2, and the wrapper (kernels/
-// stereo_bm.py _check_bm_args) refuses a configuration where that passes
-// 65535.  All arithmetic is integer, so CUDA's `/` is C's division and no
-// TPU float workaround is needed.  Next (ROADMAP): the horizontal pass as
-// a running sum, a harness cut after staging, and wider prefilter loads.
+// most 2 * prefilter_cap * (2r+1)^2, so this tiled kernel takes a
+// configuration only where that is at most 65535 (kernels/stereo_bm.py
+// k1_tiled_refusal).  All arithmetic is integer, so CUDA's `/` is C's
+// division and no TPU float workaround is needed.  Next (ROADMAP): the
+// horizontal pass as a running sum, a harness cut after staging, and
+// wider prefilter loads.
+//
+// Every other configuration the reference's strip kernel takes (another
+// disparity count, a block beyond 31 or even, costs past uint16) runs in
+// K1's wide kernel, `bm_wide_kernel`: a thread per output pixel sums each
+// (2r+1)^2 window directly from the prefiltered images in int32 and
+// walks the disparities once, keeping only what the epilogue reads (see
+// there), so it needs no cost store and no limit on ndisp or r.  It is
+// plain and slow (ndisp * (2r+1)^2 taps per pixel): the main path never
+// takes it.
 //
 // The phase harness (tpuslam_stereo_bm_phase) replaces the TPU timing
 // probe tools/probe_bm_parts.py:148 (the strip kernel cut after each of
@@ -56,6 +66,7 @@
 // tpuslam_stereo_bm launches bm_kernel<FULL>, the main path's K1.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -250,6 +261,69 @@ bm_kernel(const uint8_t* __restrict__ lp, const uint8_t* __restrict__ rp,
   minsad_out[o] = best;
 }
 
+// K1's wide kernel: any disparity count (>= 1), any radius (>= 0), int32
+// costs; same outputs as bm_kernel<FULL>.  One pass over d ascending
+// keeps the winner (ties to the larger d, as the first minimum in the
+// reversed order), the costs at its two neighbours (0 outside
+// [0, ndisp), as in the plain version) and the least cost at least two
+// steps from it: `pref`, the least cost at 0..d-2, becomes that minimum
+// when d wins, and every later cost beyond the winner's right neighbour
+// joins it.
+__global__ void __launch_bounds__(NT)
+bm_wide_kernel(const uint8_t* __restrict__ lp,
+               const uint8_t* __restrict__ rp, int16_t* __restrict__ disp,
+               int* __restrict__ minsad_out, int H, int W, int ndisp, int r,
+               int mindisp, int ftzero, int uniq, int tex_thr) {
+  const int x = blockIdx.x * TX + threadIdx.x;
+  const int y = blockIdx.y * TY + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const long frame = (long)blockIdx.z * H * W;
+  const uint8_t* L = lp + frame;
+  const uint8_t* R = rp + frame;
+  // the window, cut to the image: pixels outside it add 0
+  const int ya = max(y - r, 0), yb = min(y + r, H - 1);
+  const int xa = max(x - r, 0), xb = min(x + r, W - 1);
+  int tex = 0;
+  for (int yy = ya; yy <= yb; ++yy)
+    for (int xx = xa; xx <= xb; ++xx)
+      tex += abs((int)L[(long)yy * W + xx] - ftzero);
+  int best = INT_MAX, bd = 0, below = 0, above = 0, far = INT_MAX;
+  int prev = 0, prev2 = 0, pref = INT_MAX;
+  for (int d = 0; d < ndisp; ++d) {
+    int c = 0;
+    for (int yy = ya; yy <= yb; ++yy) {
+      const uint8_t* Lr = L + (long)yy * W;
+      const uint8_t* Rr = R + (long)yy * W;
+      for (int xx = xa; xx <= xb; ++xx)   // right pixels left of 0 are 0
+        c += abs((int)Lr[xx] - (xx >= d ? (int)Rr[xx - d] : 0));
+    }
+    if (d >= 2) pref = min(pref, prev2);
+    if (c <= best) {
+      best = c; bd = d; below = d > 0 ? prev : 0; above = 0; far = pref;
+    } else if (d == bd + 1) {
+      above = c;
+    } else {
+      far = min(far, c);
+    }
+    prev2 = prev;
+    prev = c;
+  }
+  const bool uniq_ok = uniq <= 0 || far > best + (best * uniq) / 100;
+  // in the reversed order: sad_n at d + 1, sad_p at d - 1, each taking
+  // the other at the ends
+  const int sad_n = (bd == ndisp - 1) ? below : above;
+  const int sad_p = (bd == 0) ? above : below;
+  const int denom = sad_p + sad_n - 2 * best + abs(sad_p - sad_n);
+  const int num = (sad_p - sad_n) * 256;
+  const int frac = (denom != 0) ? num / denom : 0;   // C truncation
+  const int v = ((bd + mindisp) * 256 + frac + 15) >> 4;
+  const bool valid = y >= r && y < H - r && x >= mindisp + ndisp - 1 + r &&
+                     x < W - r && tex >= tex_thr && uniq_ok;
+  const long o = frame + (long)y * W + x;
+  disp[o] = (int16_t)(valid ? v : (mindisp - 1) * 16);
+  minsad_out[o] = best;
+}
+
 // Launch 2 cut after STOP runs at bm_kernel<FULL>'s occupancy: a cut
 // that needs fewer registers or less static shared memory than FULL would
 // fit more blocks on an SM, so it takes dynamic shared memory until it
@@ -321,19 +395,32 @@ void launch_prefilter(const void* left, const void* right, void* lp,
 
 }  // namespace
 
+// K1: the tiled kernel, or with `wide` the wide kernel (the wrapper
+// chooses; the tiled kernel refuses what it cannot take).
 extern "C" int tpuslam_stereo_bm(const void* left, const void* right,
                                  void* lp_scratch, void* rp_scratch,
                                  void* disp, void* minsad, int B, int H,
                                  int W, int r, int mindisp, int ftzero,
-                                 int uniq, int tex_thr, void* stream) {
-  if (r < 1 || r > RMAX || B < 1 || H < 3 || W < 3) return -1;
+                                 int uniq, int tex_thr, int ndisp, int wide,
+                                 void* stream) {
+  const int win = 2 * r + 1;
+  if (B < 1 || H < 3 || W < 3 || r < 0 || ndisp < 1) return -1;
+  if (!wide && (r < 1 || r > RMAX || ndisp != NDISP ||
+                2L * ftzero * win * win > 65535))
+    return -1;
   cudaStream_t s = (cudaStream_t)stream;
   launch_prefilter(left, right, lp_scratch, rp_scratch, B, H, W, ftzero, s);
   dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  bm_kernel<FULL><<<grid, dim3(TX, TY), 0, s>>>(
-      (const uint8_t*)lp_scratch, (const uint8_t*)rp_scratch,
-      (int16_t*)disp, (int*)minsad, H, W, r, mindisp, ftzero, uniq,
-      tex_thr);
+  if (wide)
+    bm_wide_kernel<<<grid, dim3(TX, TY), 0, s>>>(
+        (const uint8_t*)lp_scratch, (const uint8_t*)rp_scratch,
+        (int16_t*)disp, (int*)minsad, H, W, ndisp, r, mindisp, ftzero, uniq,
+        tex_thr);
+  else
+    bm_kernel<FULL><<<grid, dim3(TX, TY), 0, s>>>(
+        (const uint8_t*)lp_scratch, (const uint8_t*)rp_scratch,
+        (int16_t*)disp, (int*)minsad, H, W, r, mindisp, ftzero, uniq,
+        tex_thr);
   return (int)cudaGetLastError();
 }
 

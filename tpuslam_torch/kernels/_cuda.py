@@ -20,9 +20,11 @@ can thus show which path it took.
 
 Dispatch (`on_kernel`): a CUDA tensor goes to its kernel unless its
 configuration lies outside what the kernel was built for; then the plain
-version runs on the card, as tpuslam's dispatch takes its XLA path there.
-The choice is made from the configuration before any launch: a failed build
-or launch inside the envelope raises.
+version runs on the card, where tpuslam's own dispatch takes its XLA path
+too (GFTT at a block size other than K2's 3).  The choice is made from the
+configuration before any launch: a failed build or launch inside the
+envelope raises.  K1 takes every StereoBM configuration (in its tiled or
+its wide kernel), as the reference's strip kernel does.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ SOURCES = {"stereo_bm_phase": "stereo_bm", "orb_blur": "orb",
 # void*, sizes and parameters int; every launcher returns cudaGetLastError()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "stereo_bm": ("tpuslam_stereo_bm", [_P] * 6 + [_I] * 8 + [_P]),
+    "stereo_bm": ("tpuslam_stereo_bm", [_P] * 6 + [_I] * 10 + [_P]),
     "gftt": ("tpuslam_gftt", [_P] * 3 + [_I] * 3 + [_P]),
     "orb": ("tpuslam_orb", [_P] * 7 + [_I] * 4 + [_P]),
     "median": ("tpuslam_masked_median2", [_P] * 5 + [_I] * 2 + [_P]),

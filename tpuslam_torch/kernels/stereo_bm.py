@@ -227,51 +227,45 @@ def stereo_bm_phase_plain(left: torch.Tensor, right: torch.Tensor,
     return _stack_frames(left, right, cfg, phase)
 
 
-# K1 keeps the 64 costs of a pixel as uint16: a cost is at most
-# 2 * prefilter_cap * block_size**2
+# K1's tiled kernel keeps the 64 costs of a pixel as uint16: a cost is at
+# most 2 * prefilter_cap * block_size**2
 K1_MAX_COST = 65535
 
 
-def _k1_cost_refusal(cfg: StereoBMConfig) -> ValueError | None:
+def k1_tiled_refusal(cfg: StereoBMConfig) -> Exception | None:
+    """Why K1's tiled kernel (the main path's, and the one the phase
+    harness cuts) cannot take `cfg`, or None where it can: costs within its
+    uint16 (2 * cap * block**2 <= 65535), 64 disparities, an odd block of
+    3..31.  K1 runs every other configuration in its wide kernel."""
     max_cost = 2 * cfg.prefilter_cap * cfg.block_size ** 2
     if max_cost > K1_MAX_COST:
         return ValueError(
             f"prefilter_cap {cfg.prefilter_cap}, block_size "
             f"{cfg.block_size}: a SAD reaches 2 * cap * block**2 = "
             f"{max_cost} > {K1_MAX_COST}, K1's uint16 cost limit")
-    return None
-
-
-def k1_refusal(cfg: StereoBMConfig) -> Exception | None:
-    """The error kernel K1 raises for configuration `cfg`, or None where
-    it takes it: costs within its uint16 (2 * cap * block**2 <= 65535), 64
-    disparities, an odd block of 3..31.  The dispatchers send a CUDA
-    tensor of any other configuration to the plain version."""
-    refusal = _k1_cost_refusal(cfg)
-    if refusal is not None:
-        return refusal
     if cfg.num_disparities != 64:
         return NotImplementedError(
-            "csrc/stereo_bm.cu is built for num_disparities=64")
+            "K1's tiled kernel is built for num_disparities=64")
     if cfg.block_size % 2 == 0 or not 3 <= cfg.block_size <= 31:
         return ValueError(f"block_size {cfg.block_size}: odd, 3..31")
     return None
 
 
-def _check_bm_args(left, right, cfg: StereoBMConfig) -> None:
-    """What kernel K1 takes: a configuration whose costs fit its uint16
-    (checked first, so that it is refused whatever the tensors), a CUDA
-    uint8 (B, H, W) pair, the rest of k1_refusal, at least 3x3 pixels."""
-    refusal = _k1_cost_refusal(cfg)
+def _check_bm_args(left, right, cfg: StereoBMConfig, tiled: bool) -> None:
+    """What kernel K1 takes: with `tiled` (the phase harness) only what
+    k1_tiled_refusal lets through, checked first so that it is refused
+    whatever the tensors; a CUDA uint8 (B, H, W) pair of at least 3x3
+    pixels; at least one disparity and a block of at least one pixel."""
+    refusal = k1_tiled_refusal(cfg) if tiled else None
     if refusal is not None:
         raise refusal
     _cuda.expect(left, "left", torch.uint8, 3)
     _cuda.expect(right, "right", torch.uint8, 3)
     if right.shape != left.shape or right.device != left.device:
         raise ValueError("left/right must share shape and device")
-    refusal = k1_refusal(cfg)
-    if refusal is not None:
-        raise refusal
+    if cfg.num_disparities < 1 or cfg.block_size < 1:
+        raise ValueError(f"num_disparities {cfg.num_disparities}, "
+                         f"block_size {cfg.block_size}: each at least 1")
     if left.shape[1] < 3 or left.shape[2] < 3:
         raise ValueError("image smaller than 3x3")
 
@@ -284,15 +278,18 @@ def _bm_params(left, cfg: StereoBMConfig):
 
 def stereo_bm_cuda(left: torch.Tensor, right: torch.Tensor,
                    cfg: StereoBMConfig = StereoBMConfig()):
-    """Kernel K1 (csrc/stereo_bm.cu): same contract as stereo_bm_plain."""
-    _check_bm_args(left, right, cfg)
+    """Kernel K1 (csrc/stereo_bm.cu): same contract as stereo_bm_plain.
+    Its tiled kernel where k1_tiled_refusal is None, else its wide kernel:
+    the choice is made from the configuration alone."""
+    _check_bm_args(left, right, cfg, tiled=False)
+    wide = k1_tiled_refusal(cfg) is not None
     lp = torch.empty_like(left)          # prefiltered images (scratch)
     rp = torch.empty_like(right)
     disp = torch.empty_like(left, dtype=torch.int16)
     minsad = torch.empty_like(left, dtype=torch.int32)
     with torch.cuda.device(left.device):
         _cuda.launch("stereo_bm", left, right, lp, rp, disp, minsad,
-                     *_bm_params(left, cfg))
+                     *_bm_params(left, cfg), cfg.num_disparities, int(wide))
     return disp, minsad
 
 
@@ -300,9 +297,10 @@ def stereo_bm_phase_cuda(left: torch.Tensor, right: torch.Tensor,
                          cfg: StereoBMConfig, phase: str):
     """The K1 phase harness (csrc/stereo_bm.cu, tpuslam_stereo_bm_phase):
     K1's prefilter launch and, past `prefilter`, K1's kernel cut after
-    `phase`.  Same contract as stereo_bm_phase_plain; no plain fallback."""
+    `phase`.  Same contract as stereo_bm_phase_plain, for the
+    configurations of K1's tiled kernel; no plain fallback."""
     _check_phase(phase)
-    _check_bm_args(left, right, cfg)
+    _check_bm_args(left, right, cfg, tiled=True)
     lp = torch.empty_like(left)
     rp = torch.empty_like(right)
     if phase == "prefilter":
@@ -514,11 +512,8 @@ def stereo_bm_lr(left: torch.Tensor, right: torch.Tensor,
                  cfg: StereoBMConfig = StereoBMConfig()) -> torch.Tensor:
     """StereoBM and its left-right check (when `disp12_max_diff >= 0`),
     without the speckle pass: kernels K1 and K5 for a CUDA tensor, the
-    plain versions for a CPU tensor.  A CUDA tensor of a configuration
-    that K1 refuses (k1_refusal) takes K1's plain version on the card.
-    Nothing here waits for the card."""
-    fn = stereo_bm_cuda if _cuda.on_kernel(left, k1_refusal(cfg)) \
-        else stereo_bm_plain
+    plain versions for a CPU tensor.  Nothing here waits for the card."""
+    fn = stereo_bm_cuda if left.is_cuda else stereo_bm_plain
     disp, minsad = fn(left, right, cfg)
     if cfg.disp12_max_diff >= 0:
         disp = lr_check(disp, minsad, cfg)
@@ -532,8 +527,8 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor,
     left-right check when `disp12_max_diff >= 0` and, with `with_speckle`,
     the speckle pass (`speckle_bm`), as tpuslam's stereo_bm.
 
-    A CUDA tensor goes to kernels K1 and K5 (K1's plain version where K1
-    refuses the configuration), a CPU tensor to the plain versions."""
+    A CUDA tensor goes to kernels K1 and K5, a CPU tensor to the plain
+    versions."""
     disp = stereo_bm_lr(left, right, cfg)
     return speckle_bm(disp, cfg) if with_speckle else disp
 
