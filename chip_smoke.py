@@ -22,7 +22,10 @@ tpuslam.  Phases, each of which raises on failure:
    K3's, K4's and K5's registers, shared and local memory;
 4. K1 phases: the phase harness (tpuslam_torch/tools/probe_bm_parts.py)
    on the same chunk: K1 cut after each of its seven phases, each cut
-   equal to its plain twin (the full one also to K1), each timed;
+   equal to its plain twin (the full one also to K1), each timed; then
+   K1's wide kernel, which runs the configurations its tiled kernel cannot
+   take (another disparity count, a block beyond 31, costs past uint16),
+   on one frame at three of them, each equal to its plain twin, timed;
 5. main path: what bench.py runs -- FastSlamPipeline.run_staged over the
    120 frames in SlamConfig() with a Mapper (async loop closure, device
    dictionary), once warm and once timed, every counter reset just before
@@ -75,9 +78,7 @@ tpuslam.  Phases, each of which raises on failure:
 
 With --spread N the main path and the per-frame path are run again with
 RANSAC seeds 1..N and the quality of each is printed (the data behind
-PERF.md's ATE bounds).  With --reader-ab the per-frame path is run again
-over both filter mixes, read in turns by the native ring and by the
-Python reader it replaced (fps and spans of each).
+PERF.md's ATE bounds).
 
 Prints fps, inliers, ATE and KITTI errors, one JSON line of per-kernel
 numbers (the harness's row with its per-phase numbers under "phases"; the
@@ -373,6 +374,38 @@ def k1_phases_phase(rows, lefts, rights, cfg):
                                "plain_ms", "bound_ms", "bound_by")})
 
 
+# configurations outside K1's tiled kernel, which K1 runs in its wide
+# kernel (the reference's strip kernel takes each): StereoBMConfig keywords
+K1_WIDE = {"ndisp32": dict(num_disparities=32),
+           "block33": dict(prefilter_cap=15, block_size=33),
+           "cost": dict(prefilter_cap=63, block_size=23)}
+
+
+def k1_wide_phase(rows, lefts, rights):
+    """K1's wide kernel at each K1_WIDE configuration on the first frame
+    of the chunk, held bit for bit to its plain twin on the card and
+    timed (spun; a main-path run never launches it).  Bound as K1's: the
+    pair in, disparity and min-SAD out (8 B), 6 operations per pixel and
+    disparity."""
+    from tpuslam_torch.config import StereoBMConfig
+    from tpuslam_torch.kernels import stereo_bm as BM
+    lb, rb = lefts[:1].contiguous(), rights[:1].contiguous()
+    px = lb.numel()
+    wide = {}
+    for case, kw in K1_WIDE.items():
+        cfg = StereoBMConfig(**kw)
+        if BM.k1_tiled_refusal(cfg) is None:
+            raise AssertionError(f"K1 wide, {case}: the tiled kernel "
+                                 f"takes it")
+        wide[case] = hold(
+            "stereo_bm", lambda: BM.stereo_bm_cuda(lb, rb, cfg),
+            lambda: BM.stereo_bm_plain(lb, rb, cfg),
+            BM.stereo_bm_cuda(lb, rb, cfg), BM.stereo_bm_plain(lb, rb, cfg),
+            8 * px, 6 * cfg.num_disparities * px,
+            what=f" (wide kernel, {case}, one frame)")
+    rows["stereo_bm"]["wide"] = wide
+
+
 def lm_check(args, what):
     """K6 against its plain version on one argument list, to LM_TOL.
     Returns the kernel's and the plain version's (rvec, tvec)."""
@@ -545,19 +578,22 @@ def write_pngs(paths_imgs, row_filter=None):
 
 def decode_ms(paths):
     """Median ms per image of the native decoder (tsl_decode) and of
-    io/png.py's Python decoder over the files `paths` (host CPU)."""
+    io/png.py's Python decoder over the files `paths` (host CPU), which
+    must decode each file alike.  Returns the medians and the images."""
     import statistics
     from tpuslam_torch.io import png
     from tpuslam_torch.io.native_loader import decode_image
-    out = {}
-    for name, fn in (("native", decode_image), ("python", png.read_png)):
-        ms = []
-        for p in paths:
+    ms, images = {"native": [], "python": []}, []
+    for p in paths:
+        got = {}
+        for name, fn in (("native", decode_image), ("python", png.read_png)):
             t0 = time.perf_counter()
-            fn(p)
-            ms.append((time.perf_counter() - t0) * 1e3)
-        out[name] = statistics.median(ms)
-    return out
+            got[name] = fn(p)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(got["native"], got["python"]):
+            raise AssertionError(f"PNG: the decoders differ on {p}")
+        images.append(got["python"])
+    return {k: statistics.median(v) for k, v in ms.items()}, images
 
 
 def ingest_phase(workdir, camera, cfg, lefts, rights, stamps, gt, staged,
@@ -593,8 +629,8 @@ def ingest_phase(workdir, camera, cfg, lefts, rights, stamps, gt, staged,
     paeth = [os.path.join(workdir, f"paeth{i}.png") for i in range(20)]
     write_pngs([(p, host[i % 2][i // 2]) for i, p in enumerate(paeth)],
                row_filter=4)
-    dec = decode_ms(paths[0][:20] + paths[1][:20])
-    dec_paeth = decode_ms(paeth)
+    dec = decode_ms(paths[0][:20] + paths[1][:20])[0]
+    dec_paeth = decode_ms(paeth)[0]
     log(f"# ingest: decode ms per {WIDTH}x{HEIGHT} image (median of 40 / "
         f"20, host CPU): native {dec['native']:.3f} / "
         f"{dec_paeth['native']:.3f}, Python {dec['python']:.3f} / "
@@ -852,10 +888,8 @@ def per_frame_phase(workdir, rows):
     timed run of all of them; then pf_kernel_phase on what the timed run
     gave the kernels."""
     import os
-    import statistics
     from tpuslam_torch.cli import slam_batch
     from tpuslam_torch.io import png
-    from tpuslam_torch.io.native_loader import decode_image
     from tpuslam_torch.io.synthetic import out_and_back_trajectory, \
         write_sequence
     from tpuslam_torch.kernels import _cuda, pnp as P, stereo_bm as BM
@@ -872,25 +906,18 @@ def per_frame_phase(workdir, rows):
         f"PNG-encoded) in {time.perf_counter() - t0:.2f} s")
     files = [os.path.join(seq, d, f) for d in ("image_0", "image_1")
              for f in sorted(os.listdir(os.path.join(seq, d)))]
-    dec, native, mix, images = [], [], np.zeros(5, np.int64), {}
+    mix = np.zeros(5, np.int64)
     for path in files:
         with open(path, "rb") as f:
-            data = f.read()
-        mix += np.bincount(png.row_filters(data), minlength=5)
-        t0 = time.perf_counter()
-        images[os.path.relpath(path, seq)] = png.decode(data)
-        dec.append((time.perf_counter() - t0) * 1e3)
-        t0 = time.perf_counter()
-        img = decode_image(path)
-        native.append((time.perf_counter() - t0) * 1e3)
-        if not np.array_equal(img, images[os.path.relpath(path, seq)]):
-            raise AssertionError(f"PNG: the decoders differ on {path}")
+            mix += np.bincount(png.row_filters(f.read()), minlength=5)
+    dec, decoded = decode_ms(files)
+    images = {os.path.relpath(p, seq): img for p, img in zip(files, decoded)}
     log(f"# per-frame path: PNG decode per {WIDTH}x{HEIGHT} image (median "
-        f"of {len(dec)}; host CPU): native {statistics.median(native):.3f} "
-        f"ms (the path's reader), Python {statistics.median(dec):.3f} ms "
-        f"(max {max(dec):.3f}); the two equal; row filters None/Sub/Up/"
-        f"Average/Paeth {'/'.join(str(int(v)) for v in mix)} (chosen per "
-        f"row as libpng and Pillow choose)")
+        f"of {len(files)}; host CPU): native {dec['native']:.3f} ms (the "
+        f"path's reader), Python {dec['python']:.3f} ms; the two equal; row "
+        f"filters None/Sub/Up/Average/Paeth "
+        f"{'/'.join(str(int(v)) for v in mix)} (chosen per row as libpng "
+        f"and Pillow choose)")
 
     cfg = pf_config()
     t0 = time.perf_counter()
@@ -1016,25 +1043,14 @@ def pf_paeth_phase(seq, images, workdir, cfg, first):
     same number of nodes and an ATE within the bound."""
     import os
     import shutil
-    import statistics
     from tpuslam_torch.cli import slam_batch
-    from tpuslam_torch.io import png
-    from tpuslam_torch.io.native_loader import decode_image
     dst = os.path.join(workdir, "seq_paeth")
     shutil.copytree(seq, dst, ignore=shutil.ignore_patterns("*.png"))
-    dec, native = [], []
-    for rel, img in images.items():
-        data = png.encode(img, row_filter=4)
-        t0 = time.perf_counter()
-        back = png.decode(data)
-        dec.append((time.perf_counter() - t0) * 1e3)
-        with open(os.path.join(dst, rel), "wb") as f:
-            f.write(data)
-        t0 = time.perf_counter()
-        back_native = decode_image(os.path.join(dst, rel))
-        native.append((time.perf_counter() - t0) * 1e3)
-        if not (np.array_equal(back, img) and
-                np.array_equal(back_native, img)):
+    paths = [os.path.join(dst, rel) for rel in images]
+    write_pngs(list(zip(paths, images.values())), row_filter=4)
+    dec, decoded = decode_ms(paths)
+    for rel, img, back in zip(images, images.values(), decoded):
+        if not np.array_equal(back, img):
             raise AssertionError(f"PNG: {rel} Paeth-filtered decodes wrong")
     out = os.path.join(workdir, "out_paeth")
     res = slam_batch.run(dst, cfg, quiet=True, out_dir=out)
@@ -1044,9 +1060,9 @@ def pf_paeth_phase(seq, images, workdir, cfg, first):
     log(f"# per-frame path, every row Paeth: odometry poses "
         f"{'identical to' if same else 'differ from'} the first run's")
     log(f"# per-frame path, every row Paeth: PNG decode per image "
-        f"(median of {len(dec)}; host CPU): native "
-        f"{statistics.median(native):.3f} ms (the path's reader), Python "
-        f"{statistics.median(dec):.3f} ms; {res['fps']:.3f} fps (the "
+        f"(median of {len(paths)}; host CPU): native "
+        f"{dec['native']:.3f} ms (the path's reader), Python "
+        f"{dec['python']:.3f} ms; {res['fps']:.3f} fps (the "
         f"written mix: "
         f"{first['fps']:.3f}); ATE={res['ate_m']:.4f} m (the written mix: "
         f"{first['ate_m']:.4f} m); span totals " + ", ".join(
@@ -1055,66 +1071,6 @@ def pf_paeth_phase(seq, images, workdir, cfg, first):
     if n != first["n_nodes"] or not res["ate_m"] <= PF_ATE_BOUND_M:
         raise AssertionError(f"per-frame path, every row Paeth: nodes {n}, "
                              f"ATE {res['ate_m']} m")
-
-
-def python_reader(self, start=0, end=None, n_banks=4, n_threads=2):
-    """StereoImageDataset.prefetch_iter as it read before the native
-    decoder: one Python thread decodes two items ahead through io/png.py
-    (its Paeth and Average rows pixel by pixel, holding the GIL)."""
-    import os
-    from collections import deque
-    from concurrent.futures import ThreadPoolExecutor
-    from tpuslam_torch.io import png
-
-    def item(i):
-        return {"id": i + 1, "stamp": self.stamp(i),
-                "left": png.read_png(os.path.join(self.left_dir,
-                                                  self._left[i])),
-                "right": png.read_png(os.path.join(self.right_dir,
-                                                   self._right[i])),
-                "ground_truth": self.ground_truth(i)}
-
-    end = len(self) if end is None else min(end, len(self))
-    with ThreadPoolExecutor(1) as pool:
-        pending = deque(pool.submit(item, i)
-                        for i in range(start, min(start + 2, end)))
-        nxt = start + len(pending)
-        while pending:
-            out = pending.popleft().result()
-            if nxt < end:
-                pending.append(pool.submit(item, nxt))
-                nxt += 1
-            yield out
-
-
-def pf_reader_phase(workdir):
-    """The per-frame path over the written files and over the every-row
-    Paeth files, each read by the native ring and by the Python reader in
-    turns (native, Python, Python, native): fps and the span totals."""
-    import os
-    from tpuslam_torch.cli import slam_batch
-    from tpuslam_torch.io.dataset import StereoImageDataset
-    native = StereoImageDataset.prefetch_iter
-    for mix, seq in (("written mix", "seq"), ("every row Paeth",
-                                              "seq_paeth")):
-        fps = {"native": [], "python": []}
-        for k, reader in enumerate(("native", "python", "python",
-                                    "native")):
-            StereoImageDataset.prefetch_iter = native \
-                if reader == "native" else python_reader
-            out = os.path.join(workdir, f"reader{k}")
-            try:
-                res = slam_batch.run(os.path.join(workdir, seq), pf_config(),
-                                     quiet=True, out_dir=out)
-            finally:
-                StereoImageDataset.prefetch_iter = native
-            fps[reader].append(res["fps"])
-            spans = span_totals(os.path.join(out, "perf_time.csv"))
-            log(f"# reader A/B, {mix}: {reader} {res['fps']:.3f} fps; per "
-                f"frame " + ", ".join(f"{k} {v / res['n_nodes']:.2f} ms"
-                                      for k, v in spans.items()))
-        log(f"# reader A/B, {mix}: native {sum(fps['native']) / 2:.3f} fps,"
-            f" Python {sum(fps['python']) / 2:.3f} fps (means of two)")
 
 
 def pf_spread_phase(seq, workdir, n):
@@ -1156,7 +1112,6 @@ def spread_phase(camera, cfg, staged, items, gt, n):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--spread", type=int, default=0)
-    ap.add_argument("--reader-ab", action="store_true")
     args = ap.parse_args()
     smi = device_phase()
     import tpuslam_torch  # noqa: F401  (applies the precision pin)
@@ -1192,6 +1147,7 @@ def main():
     chunk = (lefts[:CHUNK].contiguous(), rights[:CHUNK].contiguous())
     rows = kernel_phase(*chunk, cfg)
     k1_phases_phase(rows, *chunk, cfg)
+    k1_wide_phase(rows, *chunk)
     items = [dict(left=lefts[i], right=rights[i], stamp=stamps[i],
                   ground_truth=gt[i]) for i in range(N_FRAMES)]
     staged = FastSlamPipeline(camera, cfg, chunk=CHUNK,
@@ -1211,8 +1167,6 @@ def main():
             f"{slice_fps:.3f}, per-frame batch path {pf_fps:.3f}")
         log("# per-frame path launches per kernel: " + json.dumps(
             {k: pf_launches[k] for k in _cuda.KERNELS}))
-        if args.reader_ab:
-            pf_reader_phase(workdir)
         if args.spread:
             pf_spread_phase(seq, workdir, args.spread)
     if args.spread:
@@ -1233,8 +1187,8 @@ def main():
     kernels = [{k: rows[n][k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
-        "library_ms", "via", "tool_launches", "phases", "per_frame",
-        "per_frame_loop_closure") if k in rows[n]}
+        "library_ms", "via", "tool_launches", "phases", "wide",
+        "per_frame", "per_frame_loop_closure") if k in rows[n]}
         for n in _cuda.KERNELS + _cuda.TOOLS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
