@@ -76,9 +76,32 @@ tpuslam.  Phases, each of which raises on failure:
    reads through the native prefetch ring; both decoders are timed on its
    files, and must agree.
 
-With --spread N the main path and the per-frame path are run again with
-RANSAC seeds 1..N and the quality of each is printed (the data behind
-PERF.md's ATE bounds).
+11. depth engines (plain PyTorch on the card, no kernel of their own) on
+   frame 0 of the bench: SGBM at SGBMConfig(), with and without speckle,
+   equal to the CPU bit for bit, timed at one frame (CUDA events behind
+   the spin, and unspun; kernel launches by torch.profiler; peak memory)
+   and on a 30-frame chunk (its memory groups); LK stereo over CAPACITY
+   points (frame 0's keypoints, 6 levels) against the CPU (status equal
+   on at least 99.5 %, x within 1e-3 px), timed; the integer
+   rectification warp at the reference calibration's 640x480 equal to
+   the CPU, timed;
+12. SGBM main path: run_staged over the 120 frames in
+   SlamConfig(depth_method="sgbm") with a Mapper, every counter reset
+   just before; assert K2, K3, K4 and K6 launched, K1 and K5 not, no
+   plain version, a node per frame, bench.py:240's gates and ATE within
+   its bound; print fps and peak memory;
+13. realtime app (cli/slam_realtime.py) over phase 10's sequence: with
+   "bm", pipelined, with asynchronous and then synchronous loop closure,
+   its VO poses equal slam_batch.run's on the same RANSAC draws (fps,
+   latency p50/p95 of each); then "sgbm" and "lk" (the
+   latter with telemetry on: published and dropped frames, latest.json):
+   0 lost, a loop closure, ATE within its bound, K2 and K3 once per
+   frame, K1 and K5 never, no plain version.
+
+With --spread N the main path, the per-frame path, the SGBM main path and
+the realtime app's sgbm and lk runs are run again with RANSAC seeds 1..N
+and the quality of each is printed (the data behind PERF.md's ATE
+bounds).
 
 Prints fps, inliers, ATE and KITTI errors, one JSON line of per-kernel
 numbers (the harness's row with its per-phase numbers under "phases"; the
@@ -131,6 +154,18 @@ PF_SPANS = ("captureImageLR", "frontend", "odom.process", "mapper.process")
 INGEST_TURNS = 3
 # K6 against its plain version: f32 reduction order (tests/test_pnp.py)
 LM_TOL = dict(rvec=1e-5, tvec=1e-4, inlier_px=2.0)
+# the other depth engines.  LK on the card against the CPU: the least
+# share of equal statuses and the x tolerance where both tracked
+LK_STATUS_MIN, LK_X_TOL = 0.995, 1e-3
+# ATE bounds, 1.33x the worst RANSAC seed of a --spread on the card
+# (PERF.md "End-to-end metrics": the SGBM main path 0.3635-0.4398 m over
+# six seeds, the realtime app's sgbm 0.0237-0.0247 m and lk
+# 0.0026-0.0077 m over six seed sets); tpuslam on a CPU reads:
+# the main path with SGBM 0.3378 m (0 lost, median inliers 482, t_err
+# 0.360 %), the realtime app over the per-frame sequence with SGBM
+# 0.0243 m and with LK 0.0050 m (0 lost, 14 loop closures each)
+SGBM_ATE_BOUND_M = 0.585
+RT_ATE_BOUND_M = {"sgbm": 0.033, "lk": 0.0103}
 
 
 def log(msg):
@@ -1090,8 +1125,8 @@ def pf_spread_phase(seq, workdir, n):
         f"{max(ates):.4f} m")
 
 
-def spread_phase(camera, cfg, staged, items, gt, n):
-    """The main path with RANSAC seeds 1..n (quality only)."""
+def spread_phase(camera, cfg, staged, items, gt, n, what=""):
+    """The main path in `cfg` with RANSAC seeds 1..n (quality only)."""
     from tpuslam_torch.mapping.mapper import Mapper
     from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
     ates = []
@@ -1105,8 +1140,301 @@ def spread_phase(camera, cfg, staged, items, gt, n):
         dt = time.perf_counter() - t0
         q = quality(infos, gt)
         ates.append(q["ate"])
-        log(f"# spread seed {seed}: {N_FRAMES / dt:.3f} fps; {fmt(q)}")
-    log(f"# spread over {n} seeds: ATE {min(ates):.4f}-{max(ates):.4f} m")
+        log(f"# {what}spread seed {seed}: {N_FRAMES / dt:.3f} fps; "
+            f"{fmt(q)}")
+    log(f"# {what}spread over {n} seeds: ATE {min(ates):.4f}-"
+        f"{max(ates):.4f} m")
+
+
+def launched_kernels(fn):
+    """CUDA kernels that fn() launches, by torch.profiler's count (None
+    where the profiler records no kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def peak_mib(fn):
+    """fn()'s result and the card memory it allocated at its peak, MiB
+    above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def depth_engines_phase(lefts, rights, camera):
+    """The depth engines outside the kernels, plain PyTorch on the card,
+    at full width on frame 0 of the bench: SGBM at SGBMConfig() with and
+    without speckle equal to the CPU bit for bit, then timed on one frame
+    and on a 30-frame chunk (its groups); LK over CAPACITY points (frame
+    0's keypoints, 6 levels) against the CPU; the integer rectification
+    warp at the reference calibration's 640x480 equal to the CPU.
+    Returns the numbers PERF.md records."""
+    from tpuslam_torch.config import SGBMConfig, SlamConfig
+    from tpuslam_torch.io.synthetic import make_sequence
+    from tpuslam_torch.kernels import sgbm as S
+    from tpuslam_torch.kernels.lk_stereo import lk_stereo
+    from tpuslam_torch.kernels.rectify import StereoRectifier
+    from tpuslam_torch.runtime.pipeline import extract_features
+    from tpuslam_torch.tools.timing import call_ms, time_ms, times_ms
+    from tpuslam_torch.vo.frame import CAPACITY as PF_CAPACITY
+    out = {}
+    cfg = SGBMConfig()
+    l, r = lefts[:1].contiguous(), rights[:1].contiguous()
+    raw, out["sgbm_peak_mib"] = peak_mib(
+        lambda: S.sgbm(l, r, cfg, with_speckle=False, device="cuda"))
+    speckled = S.sgbm(l, r, cfg, with_speckle=True, device="cuda")
+    t0 = time.perf_counter()
+    raw_cpu = S.sgbm(l.cpu(), r.cpu(), cfg, with_speckle=False,
+                     device="cpu")
+    cpu_s = time.perf_counter() - t0
+    speckled_cpu = S.speckle_sgbm(raw_cpu, cfg)
+    if not (torch.equal(raw.cpu(), raw_cpu) and
+            torch.equal(speckled.cpu(), speckled_cpu)):
+        raise AssertionError("SGBM: the card differs from the CPU")
+    invalid = (cfg.min_disparity - 1) * 16
+    valid = float((raw != invalid).float().mean())
+    fn = lambda: S.sgbm(l, r, cfg, with_speckle=False, device="cuda")
+    out.update(sgbm_ms=time_ms(fn, runs=3), sgbm_call_ms=call_ms(fn, runs=3),
+               sgbm_launches=launched_kernels(fn))
+    log(f"# SGBM {WIDTH}x{HEIGHT} at SGBMConfig(): card == CPU bit for bit "
+        f"with and without speckle ({valid:.3f} of the pixels valid, "
+        f"{int((speckled != raw).sum())} filtered); one frame "
+        f"{out['sgbm_ms']:.3f} ms (CUDA events behind the spin), "
+        f"{out['sgbm_call_ms']:.3f} ms unspun, {out['sgbm_launches']} "
+        f"kernel launches (torch.profiler), peak "
+        f"{out['sgbm_peak_mib']:.1f} MiB; the CPU {cpu_s:.2f} s (host)")
+    lc, rc = lefts[:CHUNK].contiguous(), rights[:CHUNK].contiguous()
+    fn = lambda: S.sgbm(lc, rc, cfg, with_speckle=False, device="cuda")
+    _, out["sgbm_chunk_peak_mib"] = peak_mib(fn)
+    chunk_ms = sorted(times_ms(fn, runs=2, spin=False))[0]
+    out["sgbm_chunk_ms_per_frame"] = chunk_ms / CHUNK
+    group = S.group_size(HEIGHT, WIDTH, cfg)
+    log(f"# SGBM {CHUNK}-frame chunk in groups of {group}: {chunk_ms:.1f} "
+        f"ms unspun = {out['sgbm_chunk_ms_per_frame']:.3f} ms per frame; "
+        f"peak {out['sgbm_chunk_peak_mib']:.1f} MiB")
+
+    lk_cfg = SlamConfig().lk
+    frame = extract_features(l[0].cpu().numpy(), r[0].cpu().numpy(), camera,
+                             SlamConfig())
+    n = len(frame.kpts)
+    pts = np.zeros((PF_CAPACITY, 2), np.float32)
+    pts[:n] = frame.kpts[:, :2]
+    val = np.arange(PF_CAPACITY) < n
+    kw = dict(win=(lk_cfg.win_w, lk_cfg.win_h), max_level=lk_cfg.max_level,
+              max_iters=lk_cfg.iterations, eps=lk_cfg.epsilon,
+              min_eig_threshold=lk_cfg.min_eig_threshold)
+    cn, cs, _ = (t.cpu().numpy() for t in lk_stereo(l[0], r[0], pts, val,
+                                                    device="cuda", **kw))
+    t0 = time.perf_counter()
+    pn, ps, _ = (t.numpy() for t in lk_stereo(l[0].cpu(), r[0].cpu(), pts,
+                                              val, device="cpu", **kw))
+    cpu_s = time.perf_counter() - t0
+    same = float((cs == ps).mean())
+    both = cs & ps
+    x_err = float(np.abs(cn[both, 0] - pn[both, 0]).max())
+    if not (same >= LK_STATUS_MIN and x_err <= LK_X_TOL and both.sum()):
+        raise AssertionError(f"LK: card against CPU: status equal on "
+                             f"{same}, x differs by {x_err} px")
+    fn = lambda: lk_stereo(l[0], r[0], pts, val, device="cuda", **kw)
+    out.update(lk_ms=time_ms(fn, runs=3), lk_call_ms=call_ms(fn, runs=3),
+               lk_launches=launched_kernels(fn))
+    log(f"# LK {PF_CAPACITY} points ({n} keypoints of frame 0), "
+        f"{lk_cfg.max_level + 1} levels, {lk_cfg.iterations} iterations: "
+        f"status equal to the CPU on {same:.4f} of the points ({int(cs.sum())}"
+        f" tracked), x within {x_err:.3g} px (tolerances {LK_STATUS_MIN}, "
+        f"{LK_X_TOL}); {out['lk_ms']:.3f} ms (events behind the spin), "
+        f"{out['lk_call_ms']:.3f} ms unspun, {out['lk_launches']} kernel "
+        f"launches; the CPU {cpu_s:.2f} s (host)")
+
+    img = make_sequence(2, 640, 480, 500.0, 0.12, 0.3, 0.0, 5)[0]
+    rect = StereoRectifier.from_reference_calib(device="cuda")
+    rect_cpu = StereoRectifier.from_reference_calib(device="cpu")
+    got = rect(img[0], img[1])
+    want = rect_cpu(img[0].cpu(), img[1].cpu())
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+        raise AssertionError("rectify: the hw warp on the card differs from "
+                             "the CPU")
+    out["rectify_ms"] = time_ms(lambda: rect(img[0], img[1]))
+    log(f"# rectify 640x480 (reference calibration, integer warp): card == "
+        f"CPU bit for bit; both images {out['rectify_ms']:.4f} ms")
+    return out
+
+
+def sgbm_main_path_phase(camera, staged, items, gt):
+    """bench.py's run with SGBM: run_staged over the 120 frames in
+    SlamConfig(depth_method="sgbm") with a Mapper (async loop closure,
+    device dictionary), every counter reset just before; K2, K3, K4 and K6
+    launched, K1 and K5 not, no plain version; bench.py:240's gates (which
+    tpuslam's own run passes) and ATE within SGBM_ATE_BOUND_M.  Returns
+    fps."""
+    from tpuslam_torch.config import DepthMethod, SlamConfig
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.mapping.mapper import Mapper
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    cfg = SlamConfig(depth_method=DepthMethod.SGBM)
+    pipe = FastSlamPipeline(camera, cfg, chunk=CHUNK, capacity=CAPACITY,
+                            seed=SEED)
+    mp = Mapper(camera, cfg.mapper, cfg.matching, cfg.pnp)
+    mp.async_lc = True
+    _cuda.reset_counters()
+
+    def run():
+        t0 = time.perf_counter()
+        infos = pipe.run_staged(staged, items, mapper=mp, mapper_async=True)
+        torch.cuda.synchronize()
+        return infos, time.perf_counter() - t0
+    (infos, dt), peak = peak_mib(run)
+    launches, plain = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+    q = quality(infos, gt)
+    fps = N_FRAMES / dt
+    log(f"# SGBM main path: {N_FRAMES} frames {WIDTH}x{HEIGHT} in {dt:.3f} s"
+        f" = {fps:.3f} fps; {fmt(q)}; peak {peak:.1f} MiB above the staged "
+        f"frames; mapper {len(mp.nodes)} nodes, "
+        f"{len(mp.loop_closures)} loop closures")
+    log(f"# SGBM main path: launches {launches}, plain calls {plain}")
+    need = ("gftt", "orb", "median", "lm_refine")
+    if any(launches[k] == 0 for k in need) or launches["stereo_bm"] or \
+            launches["lr_check"] or any(launches[k] for k in _cuda.TOOLS) \
+            or any(plain.values()):
+        raise AssertionError(f"SGBM main path: launches {launches}, plain "
+                             f"{plain}")
+    if len(mp.nodes) != N_FRAMES:
+        raise AssertionError("SGBM main path: the Mapper lacks a node per "
+                             "frame")
+    if q["lost"] > MAX_LOST or q["median_inliers"] < MIN_MEDIAN_INLIERS \
+            or not q["t_err"] <= MAX_T_ERR_PCT:
+        raise AssertionError(f"SGBM main path: bench gates failed: {fmt(q)}")
+    if not q["ate"] <= SGBM_ATE_BOUND_M:
+        raise AssertionError(f"SGBM main path: ATE {q['ate']} m above the "
+                             f"bound {SGBM_ATE_BOUND_M} m")
+    return fps, peak
+
+
+def _realtime_run(seq, cfg, out, **kw):
+    """slam_realtime.run on the card, every counter reset just before;
+    returns (result, lost frames, launches, plain calls)."""
+    from tpuslam_torch.cli import slam_realtime
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.vo import odometry as O
+    process, lost = O.Odometry.process, []
+
+    def recorded(self, frame):
+        info = process(self, frame)
+        lost.append(info.lost)
+        return info
+    O.Odometry.process = recorded
+    try:
+        _cuda.reset_counters()
+        torch.cuda.synchronize()
+        res = slam_realtime.run(seq, cfg, quiet=True, out_dir=out, **kw)
+        torch.cuda.synchronize()
+    finally:
+        O.Odometry.process = process
+    return res, sum(lost[1:]), dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+
+
+def realtime_phase(seq, workdir):
+    """The realtime app (cli/slam_realtime.py) over the per-frame phase's
+    sequence in pf_config(): with "bm", pipelined, with asynchronous and
+    with synchronous loop closure, its VO poses equal slam_batch.run's on
+    the same RANSAC draws; then "sgbm" and "lk"
+    (the lk run with telemetry): 0 lost, a loop closure, ATE within
+    RT_ATE_BOUND_M, K2 and K3 once per frame, K1 and K5 never, no plain
+    version.  Returns {method: (fps, p50 ms, p95 ms)}."""
+    import os
+    from tpuslam_torch.cli import slam_batch
+    from tpuslam_torch.config import DepthMethod
+    cfg = pf_config()
+    draws = pf_draws(1)
+    batch = slam_batch.run(seq, cfg, quiet=True, draws_fn=draws,
+                           out_dir=os.path.join(workdir, "rt_batch"))
+    res, lost, launches, plain = _realtime_run(
+        seq, cfg, os.path.join(workdir, "rt_bm"), draws_fn=draws,
+        pipelined=True, async_lc=True)
+    n = res["n_frames"]
+    if not np.array_equal(res["vo_poses"], batch["vo_poses"]):
+        raise AssertionError("realtime bm: the VO poses differ from the "
+                             "batch app's on the same draws")
+    out = {"bm": (res["fps"], res["latency_ms_p50"], res["latency_ms_p95"])}
+    log(f"# realtime bm (pipelined, async LC): {n} frames at "
+        f"{res['fps']:.3f} fps, latency p50 {res['latency_ms_p50']:.2f} ms,"
+        f" p95 {res['latency_ms_p95']:.2f} ms; VO poses identical to the "
+        f"batch app's ({batch['fps']:.3f} fps) on the same draws; lost "
+        f"{lost}, {res['n_loop_closures']} loop closures, "
+        f"ATE={res['ate_m']:.4f} m")
+    sync, _, _, _ = _realtime_run(
+        seq, cfg, os.path.join(workdir, "rt_bm_sync"), draws_fn=draws,
+        pipelined=True, async_lc=False)
+    if not np.array_equal(sync["vo_poses"], batch["vo_poses"]):
+        raise AssertionError("realtime bm, synchronous LC: the VO poses "
+                             "differ from the batch app's")
+    out["bm_sync_lc"] = (sync["fps"], sync["latency_ms_p50"],
+                         sync["latency_ms_p95"])
+    log(f"# realtime bm (pipelined, synchronous LC): {sync['fps']:.3f} fps, "
+        f"latency p50 {sync['latency_ms_p50']:.2f} ms, p95 "
+        f"{sync['latency_ms_p95']:.2f} ms; VO poses identical")
+    for method in ("sgbm", "lk"):
+        tel = os.path.join(workdir, "telemetry") if method == "lk" else None
+        res, lost, launches, plain = _realtime_run(
+            seq, cfg.replace(depth_method=DepthMethod(method)),
+            os.path.join(workdir, f"rt_{method}"), telemetry_dir=tel)
+        out[method] = (res["fps"], res["latency_ms_p50"],
+                       res["latency_ms_p95"])
+        log(f"# realtime {method}: {n} frames at {res['fps']:.3f} fps, "
+            f"latency p50 {res['latency_ms_p50']:.2f} ms, p95 "
+            f"{res['latency_ms_p95']:.2f} ms; lost {lost}, "
+            f"{res['n_loop_closures']} loop closures, "
+            f"ATE={res['ate_m']:.4f} m (bound {RT_ATE_BOUND_M[method]} m); "
+            f"launches {launches}, plain calls {plain}")
+        if lost or res["n_loop_closures"] < 1 or \
+                not res["ate_m"] <= RT_ATE_BOUND_M[method]:
+            raise AssertionError(f"realtime {method}: lost {lost}, loop "
+                                 f"closures {res['n_loop_closures']}, ATE "
+                                 f"{res['ate_m']} m")
+        if launches["stereo_bm"] or launches["lr_check"] or \
+                launches["gftt"] != n or launches["orb"] != n or \
+                any(plain.values()):
+            raise AssertionError(f"realtime {method}: launches {launches}, "
+                                 f"plain {plain}")
+        if tel is not None:
+            st = res["telemetry"]
+            if not os.path.exists(os.path.join(tel, "latest.json")) or \
+                    not st["published"] >= 1:
+                raise AssertionError(f"telemetry: {st}, latest.json "
+                                     f"missing")
+            log(f"# telemetry (realtime {method}): {st['published']} "
+                f"frames published, {st['dropped']} dropped; latest.json "
+                f"present")
+    return out
+
+
+def realtime_spread_phase(seq, workdir, n):
+    """The realtime app's sgbm and lk runs with RANSAC seed sets 1..n
+    (quality only)."""
+    import os
+    from tpuslam_torch.cli import slam_realtime
+    from tpuslam_torch.config import DepthMethod
+    for method in ("sgbm", "lk"):
+        ates = []
+        for k in range(1, n + 1):
+            res = slam_realtime.run(
+                seq, pf_config().replace(depth_method=DepthMethod(method)),
+                quiet=True, out_dir=os.path.join(workdir, f"rts{k}"),
+                draws_fn=pf_draws(k))
+            ates.append(res["ate_m"])
+            log(f"# realtime {method} spread seed set {k}: ATE="
+                f"{res['ate_m']:.4f} m, {res['n_loop_closures']} loop "
+                f"closures")
+        log(f"# realtime {method} spread over {n} seed sets: ATE "
+            f"{min(ates):.4f}-{max(ates):.4f} m")
 
 
 def main():
@@ -1116,7 +1444,7 @@ def main():
     smi = device_phase()
     import tpuslam_torch  # noqa: F401  (applies the precision pin)
     from tpuslam_torch.kernels import _cuda
-    from tpuslam_torch.config import SlamConfig
+    from tpuslam_torch.config import DepthMethod, SlamConfig
     from tpuslam_torch.io import native_loader
     from tpuslam_torch.io.synthetic import make_sequence, sequence_camera
     from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
@@ -1158,19 +1486,29 @@ def main():
     post_loop_phase(mapper, camera, cfg, gt)
     slice_fps = slice_phase(camera, staged, items, gt)
     speckle_check(*chunk, cfg)
+    depth = depth_engines_phase(lefts, rights, camera)
+    sgbm_fps, sgbm_peak = sgbm_main_path_phase(camera, staged, items, gt)
     with tempfile.TemporaryDirectory() as workdir:
         ingest_fps = ingest_phase(workdir, camera, cfg, lefts, rights,
                                   stamps, gt, staged, items, infos, fps)
         seq, pf_fps, pf_launches = per_frame_phase(workdir, rows)
+        rt = realtime_phase(seq, workdir)
         log(f"# fps: default configuration + Mapper {fps:.3f}, the same "
             f"from PNG files (run_ingest) {ingest_fps:.3f}, slice "
-            f"{slice_fps:.3f}, per-frame batch path {pf_fps:.3f}")
+            f"{slice_fps:.3f}, per-frame batch path {pf_fps:.3f}, SGBM main "
+            f"path {sgbm_fps:.3f} (peak {sgbm_peak:.1f} MiB), realtime " +
+            ", ".join(f"{m} {v[0]:.3f} (p50 {v[1]:.2f} ms, p95 {v[2]:.2f} "
+                      f"ms)" for m, v in rt.items()))
         log("# per-frame path launches per kernel: " + json.dumps(
             {k: pf_launches[k] for k in _cuda.KERNELS}))
+        log("# depth engines: " + json.dumps(depth))
         if args.spread:
             pf_spread_phase(seq, workdir, args.spread)
+            realtime_spread_phase(seq, workdir, args.spread)
     if args.spread:
         spread_phase(camera, cfg, staged, items, gt, args.spread)
+        spread_phase(camera, SlamConfig(depth_method=DepthMethod.SGBM),
+                     staged, items, gt, args.spread, what="SGBM ")
 
     for name, row in rows.items():
         if name in _cuda.KERNELS:

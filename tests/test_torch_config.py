@@ -43,7 +43,10 @@ COPIED_DEFS = [("kernels/gftt.py", "select_from_candidates"),
                ("runtime/pipeline.py", "_keypoints_3d"),
                ("mapping3d/occupancy.py", "OccupancyGrid"),
                ("mapping3d/occupancy.py", "_cam_vector"),
-               ("vo/odometry.py", "OdomInfo")]
+               ("vo/odometry.py", "OdomInfo"),
+               ("kernels/rectify.py", "RectCamera"),
+               ("kernels/rectify.py", "rect_map_fixed"),
+               ("kernels/rectify.py", "rect_map_float")]
 KERNELS = ["stereo_bm", "gftt", "orb", "median", "lr_check", "lm_refine"]
 
 
@@ -193,8 +196,8 @@ def test_frame_and_odominfo_fields():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port, its main path and its batch app included,
-    loads no JAX, no tpuslam and no Pillow."""
+    """Importing the port, its main path, its batch and realtime apps and
+    its depth engines included, loads no JAX, no tpuslam and no Pillow."""
     code = ("import sys; import tpuslam_torch; "
             "import tpuslam_torch.runtime.fast_pipeline, "
             "tpuslam_torch.io.synthetic, tpuslam_torch.convert, "
@@ -202,7 +205,10 @@ def test_import_leaves_jax_out():
             "tpuslam_torch.mapping.chunk_dict, tpuslam_torch.optim, "
             "tpuslam_torch.optim.ba, tpuslam_torch.cli.slam_batch, "
             "tpuslam_torch.mapping3d, tpuslam_torch.io.dataset, "
-            "tpuslam_torch.io.native_loader, tpuslam_torch.io.resize; "
+            "tpuslam_torch.io.native_loader, tpuslam_torch.io.resize, "
+            "tpuslam_torch.cli.slam_realtime, tpuslam_torch.kernels.sgbm, "
+            "tpuslam_torch.kernels.lk_stereo, tpuslam_torch.kernels.rectify, "
+            "tpuslam_torch.runtime.telemetry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'tpuslam', 'PIL')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -339,7 +345,8 @@ def test_kernel_table_names_every_kernel():
 
 def _entry_points():
     from tpuslam_torch import convert
-    from tpuslam_torch.cli import slam_batch
+    from tpuslam_torch.cli import slam_batch, slam_realtime
+    from tpuslam_torch.kernels import lk_stereo, rectify, sgbm
     from tpuslam_torch.io.synthetic import write_sequence
     from tpuslam_torch.mapping3d import occupancy
     from tpuslam_torch.runtime import pipeline
@@ -371,6 +378,13 @@ def _entry_points():
         "extract_features": pipeline.extract_features,
         "frontend_dispatch": pipeline.frontend_dispatch,
         "slam_batch.run": slam_batch.run,
+        "slam_realtime.run": slam_realtime.run,
+        "sgbm": sgbm.sgbm,
+        "lk_stereo": lk_stereo.lk_stereo,
+        "compute_correspondences": lk_stereo.compute_correspondences,
+        "StereoRectifier": rectify.StereoRectifier.__init__,
+        "StereoRectifier.from_reference_calib":
+            rectify.StereoRectifier.from_reference_calib,
         "write_sequence": write_sequence,
         "build_occupancy_grid_map": occupancy.build_occupancy_grid_map,
         "insert_depth_frame": occupancy.insert_depth_frame,
@@ -387,6 +401,10 @@ def _entry_points():
                                   "refine_trajectory_global_ba", "Odometry",
                                   "extract_features", "frontend_dispatch",
                                   "slam_batch.run", "write_sequence",
+                                  "slam_realtime.run", "sgbm", "lk_stereo",
+                                  "compute_correspondences",
+                                  "StereoRectifier",
+                                  "StereoRectifier.from_reference_calib",
                                   "build_occupancy_grid_map",
                                   "insert_depth_frame"])
 def test_entry_point_defaults_to_the_card(name):

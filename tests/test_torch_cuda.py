@@ -21,6 +21,9 @@ filter on the card is held to the CPU bit for bit.  Configurations outside
 K1's tiled kernel run in its wide kernel and equal its plain twin; GFTT
 outside K2's block size runs the plain version on the card and equals the
 CPU; run_ingest on the card equals run_staged on the same written frames.
+The depth engines outside the kernels: SGBM on the card equals the CPU
+bit for bit, LK agrees with it, the integer rectification warp equals
+it, and the realtime app on the card gives the batch app's poses.
 """
 
 import os
@@ -628,3 +631,91 @@ def test_run_ingest_equals_staged_on_the_card(tmp_path, n_frames):
     for k in pa:
         np.testing.assert_array_equal(pa[k], pb[k])
     assert len(la) == len(lb)
+
+
+# SGBM configurations held card against CPU: SGBMConfig() and min_d 0
+SGBM_CASES = {"reference": dict(),
+              "min0_uniq_lr": dict(min_disparity=0, num_disparities=64,
+                                   uniqueness_ratio=10, disp12_max_diff=1)}
+
+
+@pytest.mark.parametrize("case", list(SGBM_CASES))
+def test_sgbm_card_equals_cpu(pair, case):
+    """SGBM (plain PyTorch on both devices, integer throughout) on the card
+    equals the CPU bit for bit, with and without the speckle pass; it
+    launches none of K1-K6."""
+    from tpuslam_torch.config import SGBMConfig
+    from tpuslam_torch.kernels import _cuda, sgbm as S
+    cfg = SGBMConfig(**SGBM_CASES[case])
+    lb, rb = pair
+    for speckle in (False, True):
+        _cuda.reset_counters()
+        card = S.sgbm(lb, rb, cfg, with_speckle=speckle, device="cuda")
+        torch.cuda.synchronize()
+        assert not any(_cuda.LAUNCHES.values())
+        cpu = S.sgbm(lb.cpu(), rb.cpu(), cfg, with_speckle=speckle,
+                     device="cpu")
+        np.testing.assert_array_equal(card.cpu().numpy(), cpu.numpy())
+
+
+def test_lk_card_against_cpu(pair):
+    """LK stereo over 1536 points (the path's CAPACITY) on the card against
+    the CPU: status equal on at least 99.5 % of the points, x within
+    1e-3 px where both tracked."""
+    from tpuslam_torch.kernels.lk_stereo import lk_stereo
+    left, right = pair[0][0], pair[1][0]
+    rng = np.random.default_rng(0)
+    h, w = left.shape
+    pts = np.stack([rng.uniform(0, w, 1536), rng.uniform(0, h, 1536)],
+                   1).astype(np.float32)
+    valid = np.arange(1536) < 1400
+    cn, cs, ce = (t.cpu().numpy() for t in lk_stereo(left, right, pts, valid,
+                                                     device="cuda"))
+    pn, ps, pe = (t.numpy() for t in lk_stereo(left.cpu(), right.cpu(), pts,
+                                               valid, device="cpu"))
+    assert (cs == ps).mean() >= 0.995 and ps.sum() > 100
+    both = cs & ps
+    np.testing.assert_allclose(cn[both, 0], pn[both, 0], rtol=0, atol=1e-3)
+
+
+def test_rectify_hw_warp_card_equals_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.kernels.rectify import StereoRectifier
+    left = np.load(os.path.join(FIXTURES, "raw_left.npy"))
+    right = np.load(os.path.join(FIXTURES, "raw_right.npy"))
+    card = StereoRectifier.from_reference_calib(device="cuda")(left, right)
+    cpu = StereoRectifier.from_reference_calib(device="cpu")(left, right)
+    for a, b in zip(card, cpu):
+        assert a.is_cuda
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+def test_realtime_app_on_the_card_equals_batch(tmp_path):
+    """The realtime app (pipelined, asynchronous loop closure) on the card
+    over a written 6-frame 320x240 sequence: the batch app's VO poses,
+    the same draws injected into both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.cli import slam_batch, slam_realtime
+    from tpuslam_torch.config import SlamConfig, MapperConfig
+    from tpuslam_torch.io.synthetic import write_sequence
+    seq = write_sequence(str(tmp_path / "seq"), n_frames=6, width=320,
+                         height=240, f=250.0, speed=0.4, yaw_rate=0.002,
+                         seed=3)
+    cfg = SlamConfig().replace(mapper=MapperConfig(map_update=2,
+                                                   max_stm_size=2,
+                                                   loop_thr=0.05))
+
+    def draws(seed):
+        return np.random.default_rng(seed).random((300, 6),
+                                                  dtype=np.float32)
+    b = slam_batch.run(seq, cfg, quiet=True, out_dir=str(tmp_path / "b"),
+                       draws_fn=draws)
+    r = slam_realtime.run(seq, cfg, quiet=True, out_dir=str(tmp_path / "r"),
+                          draws_fn=draws)
+    np.testing.assert_array_equal(r["vo_poses"], b["vo_poses"])
+    assert r["n_loop_closures"] == b["n_loop_closures"]
+    for nid in b["optimized"]:
+        np.testing.assert_allclose(r["optimized"][nid], b["optimized"][nid],
+                                   rtol=0, atol=1e-5)

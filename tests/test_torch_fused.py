@@ -22,8 +22,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tpuslam.config import SlamConfig, MapperConfig, StereoBMConfig, \
-    PnPConfig
+from tpuslam.config import DepthMethod, MapperConfig, PnPConfig, \
+    SGBMConfig, SlamConfig, StereoBMConfig
 from tpuslam.vo import fused as JF
 from tpuslam_torch import convert
 from tpuslam_torch.vo import fused as TF
@@ -77,12 +77,12 @@ def _camera(items):
     return StereoCameraModel(P_l=P0, P_r=P1, width=w, height=h)
 
 
-def _port_pipe(items, cfg=None, **kw):
+def _port_pipe(items, cfg=None, chunk=6, **kw):
     from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
     return FastSlamPipeline(convert.camera_from_reference(_camera(items)),
                             convert.config_from_reference(
                                 cfg or _slice_cfg()),
-                            chunk=6, capacity=384, draws_fn=_jax_draws,
+                            chunk=chunk, capacity=384, draws_fn=_jax_draws,
                             device="cpu", **kw)
 
 
@@ -156,27 +156,65 @@ def test_staged_sync_and_async_identical(fwd_seq, port_run):
         assert x.num_inliers == y.num_inliers == z.num_inliers
 
 
-@pytest.mark.parametrize("case", ["speckle", "sgbm"])
+@pytest.mark.parametrize("case", ["speckle"])
 def test_unported_paths_raise(fwd_seq, case):
-    """SGBM is not ported and raises.  Fused speckle, refused until it was
-    ported for StereoBM, now builds a pipeline that runs a chunk on the
-    CPU through the batch speckle filter."""
-    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    """Fused speckle, refused until it was ported for StereoBM, builds a
+    pipeline that runs a chunk on the CPU through the batch speckle
+    filter."""
     from tpuslam_torch.kernels import stereo_bm as BM
-    from tpuslam_torch import config as C
-    cfg = convert.config_from_reference(_default_cfg())
-    cam = convert.camera_from_reference(_camera(fwd_seq))
-    if case == "sgbm":
-        with pytest.raises(NotImplementedError, match="A4"):
-            FastSlamPipeline(cam, cfg.replace(
-                depth_method=C.DepthMethod.SGBM), chunk=6, capacity=384,
-                device="cpu")
-        return
     pipe = _port_pipe(fwd_seq, _default_cfg().replace(fused_speckle=True))
     BM.SPECKLE_ROUNDS.clear()
     infos = pipe.run(fwd_seq[:6])
     assert len(infos) == 6 and len(BM.SPECKLE_ROUNDS) == 1
     assert not any(i.lost for i in infos[1:])
+
+
+def _sgbm_cfg(**kw):
+    """SGBM at tests/test_sgbm.py's small range (min_d 0, 64 disparities)
+    in the default configuration."""
+    return _default_cfg().replace(
+        depth_method=DepthMethod.SGBM,
+        sgbm=SGBMConfig(min_disparity=0, num_disparities=64), **kw)
+
+
+def test_sgbm_chunk_matches_reference(fwd_seq):
+    """A 4-frame fused chunk with SGBM on the CPU against tpuslam's: flags
+    equal, inliers within 2, translations within 1e-3 m (the disparity is
+    bit-equal, test_torch_sgbm.py); the speckled chunk runs the batch
+    filter once."""
+    from tpuslam.runtime.fast_pipeline import FastSlamPipeline
+    from tpuslam_torch.kernels import stereo_bm as BM
+    items = fwd_seq[:4]
+    ref = FastSlamPipeline(_camera(items), _sgbm_cfg(), chunk=4,
+                           capacity=384).run(items)
+    got = _port_pipe(items, _sgbm_cfg(), chunk=4).run(items)
+    _assert_close_runs(got, ref)
+    assert not any(i.lost for i in got[1:])
+    BM.SPECKLE_ROUNDS.clear()
+    speckled = _port_pipe(items, _sgbm_cfg(fused_speckle=True),
+                          chunk=4).run(items)
+    assert len(speckled) == 4 and len(BM.SPECKLE_ROUNDS) == 1
+    assert not any(i.lost for i in speckled[1:])
+
+
+@pytest.fixture(scope="module")
+def bm_chunk(fwd_seq):
+    items = fwd_seq[:4]
+    return _port_pipe(items, _default_cfg(), chunk=4).run(items)
+
+
+@pytest.mark.parametrize("method", ["lk", "cv_bm"])
+def test_sparse_and_oracle_methods_run_bm_fused(fwd_seq, bm_chunk, method):
+    """The fused program has only the dense engines: with "lk" or "cv_bm"
+    it runs StereoBM, as tpuslam's does (tpuslam/vo/fused.py:242-252), so
+    the chunk equals the "bm" chunk."""
+    items = fwd_seq[:4]
+    bm = bm_chunk
+    got = _port_pipe(items, _default_cfg().replace(
+        depth_method=DepthMethod(method)), chunk=4).run(items)
+    for a, b in zip(got, bm):
+        np.testing.assert_array_equal(a.pose, b.pose)
+        assert a.num_inliers == b.num_inliers
 
 
 @pytest.fixture(scope="module")

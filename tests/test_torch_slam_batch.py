@@ -276,11 +276,24 @@ def test_port_took_the_plain_versions(runs):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["-depth", "sgbm"], "A4"), (["-depth", "lk"], "A4"),
-    (["-resume", "state.npz"], "A5"), (["-checkpoint-every", "5"], "A5"),
-    (["-device-opt"], "A5")])
+    pytest.param(["-resume", "state.npz"], "A5", id="argv2-A5"),
+    pytest.param(["-checkpoint-every", "5"], "A5", id="argv3-A5"),
+    pytest.param(["-device-opt"], "A5", id="argv4-A5")])
 def test_main_refuses_unported_options(tmp_path, argv, match):
     from tpuslam_torch.cli.slam_batch import main
     with pytest.raises(NotImplementedError, match=match):
         main(["-dir", str(tmp_path)] + argv)
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("method", ["sgbm", "lk", "cv_bm"])
+def test_main_runs_every_depth_method(runs, tmp_path, method):
+    """`-depth` takes every engine: main() over the first 3 frames on the
+    CPU writes the batch app's outputs."""
+    from tpuslam_torch.cli.slam_batch import main
+    out = str(tmp_path / method)
+    main(["-dir", runs["seq"], "-n", "2", "-out", out, "-quiet",
+          "-depth", method, "-device", "cpu"])
+    for name in OUTPUTS:
+        assert os.path.exists(os.path.join(out, name)), name
+    assert len(open(os.path.join(out, "perf_time.csv")).readlines()) == 4

@@ -8,10 +8,12 @@ optimized-poses CSV, KITTI ground-truth scoring and the occupancy grid
 for the CPU:
 
     python -m tpuslam_torch.cli.slam_batch -dir DIR [-n N] [-out OUT]
+        [-depth bm|sgbm|lk|cv_bm] [-device cuda|cpu]
 
+`-depth bm|sgbm|lk|cv_bm` picks the depth engine (runtime/pipeline.py).
 Not ported yet, and refused with NotImplementedError: checkpointing
 (-resume, -checkpoint*) and the device pose-graph backend (-device-opt),
-ROADMAP A5; depth methods other than "bm" (-depth), ROADMAP A4.
+ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..io.png import image_size as png_size
 from ..mapping.mapper import Mapper
 from ..optim import run_optimize_robust
 from ..runtime.perf import Perf
-from ..runtime.pipeline import check_depth_method, extract_features
+from ..runtime.pipeline import extract_features
 from ..vo.odometry import Odometry
 
 
@@ -63,7 +65,6 @@ def run(seq_dir: str, cfg: SlamConfig | None = None,
     Returns a result dict with raw/optimized poses, metrics, and timing.
     """
     cfg = cfg or SlamConfig()
-    check_depth_method(cfg)
     _refuse(resume_from, checkpoint_every, checkpoint_path, opt_backend)
     out_dir = out_dir or seq_dir
     os.makedirs(out_dir, exist_ok=True)
@@ -223,7 +224,10 @@ def main(argv=None):
     ap.add_argument("-depth", dest="depth", default="bm",
                     choices=[m.value for m in DepthMethod],
                     help="depth engine (appSetting.depthMethod twin, "
-                         "Parameters.h:24-30); only bm is ported")
+                         "Parameters.h:24-30)")
+    ap.add_argument("-device", dest="device", default="cuda",
+                    help="torch device of the device work (default: the "
+                         "card)")
     args = ap.parse_args(argv)
     cfg = SlamConfig(depth_method=DepthMethod(args.depth))
     run(args.dir, cfg=cfg, num_images=args.num_images,
@@ -233,7 +237,8 @@ def main(argv=None):
         checkpoint_every=args.checkpoint_every,
         checkpoint_path=args.checkpoint_path, ba=args.ba,
         ba_global=args.ba_global,
-        opt_backend="device" if args.device_opt else "host")
+        opt_backend="device" if args.device_opt else "host",
+        device=args.device)
 
 
 if __name__ == "__main__":

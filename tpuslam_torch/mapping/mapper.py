@@ -101,9 +101,14 @@ class Mapper:
                 # (Mapper.cpp:107-124, xThread.cpp:15-44)
                 import threading
                 self._lc_result = [None, None]   # link, error
+                # the worker runs on this thread's card ("cuda" without
+                # an index names the calling thread's current device)
+                dev = self.device
+                if dev.type == "cuda" and dev.index is None:
+                    dev = torch.device("cuda", torch.cuda.current_device())
                 self._lc_thread = threading.Thread(
-                    target=self._lc_worker, args=(node, self._lc_result),
-                    daemon=True)
+                    target=self._lc_worker,
+                    args=(node, self._lc_result, dev), daemon=True)
                 self._lc_thread.start()
             else:
                 link = self._dictionary_and_loop_closure(node)
@@ -112,10 +117,10 @@ class Mapper:
 
         self._frame_processed += 1
 
-    def _lc_worker(self, node: Node, result: list):
+    def _lc_worker(self, node: Node, result: list, dev: torch.device):
         try:
-            if self.device.type == "cuda":
-                torch.cuda.set_device(self.device)
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev)
             result[0] = self._dictionary_and_loop_closure(node)
         except BaseException as e:       # re-raised by join_loop_closure
             result[1] = e

@@ -14,10 +14,13 @@ frame runs but leaves the carry unchanged.
 The VO step never reads a tensor on the host (no .item(), no bool() of a
 tensor), so the frames of a chunk queue on the device without a sync.
 
-With `fused_speckle` the chunk's disparity goes through the batch speckle
-filter, as tpuslam's batched_frontend filters it.  Not ported yet, and
-refused with NotImplementedError: depth methods other than "bm" (ROADMAP
-A4).  The factories build on the card unless the caller asks for the CPU
+The chunk's disparity is SGBM's for depth_method "sgbm" and StereoBM's
+for every other method, "lk" and "cv_bm" included, as tpuslam's fused
+program computes it (tpuslam/vo/fused.py:242-252: the sparse LK and the
+OpenCV oracle run only on the per-frame path).  With `fused_speckle` the
+chunk's disparity goes through the batch speckle filter in the engine's
+range (SGBM's x16), as tpuslam's batched_frontend filters it.  The
+factories build on the card unless the caller asks for the CPU
 (device="cpu").
 
 RANSAC draws: tpuslam seeds each frame's hypotheses with
@@ -38,17 +41,10 @@ from ..kernels import matching as M
 from ..kernels import pnp as P
 from ..kernels.gftt import gftt_candidates, select_from_candidates_device
 from ..kernels.orb import orb_descriptors_const_angle
+from ..kernels.sgbm import sgbm
 from ..kernels.stereo_bm import stereo_bm
 
 BIG = 1e9
-
-
-def check_supported(cfg: SlamConfig) -> None:
-    """Refuse the configurations whose modules are not ported yet."""
-    if cfg.depth_method != "bm":
-        raise NotImplementedError(
-            f"depth_method={cfg.depth_method!r}: only 'bm' is ported "
-            "(ROADMAP A4)")
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +226,6 @@ def make_frontend_fn(camera: StereoCameraModel, cfg: SlamConfig,
     """Front-end factory: (lefts, rights) (B, H, W) uint8 -> feature dict
     of batched tensors (kpts, valid, n_kpts, desc, bits, pts3d,
     disp_dec)."""
-    check_supported(cfg)
     H, W = camera.height, camera.width
     dec = shapes.dec
     Hd, Wd = H // dec, W // dec
@@ -246,10 +241,17 @@ def make_frontend_fn(camera: StereoCameraModel, cfg: SlamConfig,
     wy_n = torch.tensor(camera.Tx_l / camera.fy_l -
                         camera.Tx_r / camera.fy_r, **f32)
 
+    def compute_disparity(lefts, rights):
+        # the dense engines only (tpuslam/vo/fused.py:242-252)
+        if cfg.depth_method == "sgbm":
+            return sgbm(lefts, rights, cfg.sgbm,
+                        with_speckle=cfg.fused_speckle, device=lefts.device)
+        return stereo_bm(lefts, rights, cfg.bm,
+                         with_speckle=cfg.fused_speckle)
+
     def frontend(lefts, rights):
         B = lefts.shape[0]
-        disp = stereo_bm(lefts, rights, cfg.bm,
-                         with_speckle=cfg.fused_speckle)
+        disp = compute_disparity(lefts, rights)
         kpts, valid, n_k = detect_keypoints(lefts, cfg, shapes)
 
         # GFTT keypoints carry angle -1 (GFTT.cpp octave-0 path)
@@ -297,7 +299,6 @@ def make_fused_chunk_fn(camera: StereoCameraModel, cfg: SlamConfig,
     outs holds per-frame poses, transforms and flags for every frame;
     feats holds the features of the mapper's full-node frames only
     (`full_node_offsets`)."""
-    check_supported(cfg)
     H, W = camera.height, camera.width
     C = shapes.capacity
     B = shapes.chunk
