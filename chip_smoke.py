@@ -96,7 +96,33 @@ tpuslam.  Phases, each of which raises on failure:
    latency p50/p95 of each); then "sgbm" and "lk" (the
    latter with telemetry on: published and dropped frames, latest.json):
    0 lost, a loop closure, ATE within its bound, K2 and K3 once per
-   frame, K1 and K5 never, no plain version.
+   frame, K1 and K5 never, no plain version;
+14. the pose graph's device back end (optim/device.py, kernel K7
+   csrc/thomas.cu, the block-Thomas solve): the batch app with
+   -device-opt over phase 10's sequence, cut after frame 29 with a
+   checkpoint and resumed to the end; (b) the resumed run's Mapper ids,
+   poses, links, word count, node words and VO poses equal phase 10's
+   straight run bit for bit, and the replay (cli/optimize_replay.py) of
+   its map CSVs equals its optimized_poses.csv (atol 1e-3, the CSV round
+   trip); (a) in the resumed run, counters reset just before it, K7 at
+   least once per LM iteration and no plain solve; its optimized poses
+   within translations 5e-2 and chi2 10 % of the host back end on the
+   same graph, "device-dense" and "device" within chi2 2e-3 and
+   translations 2e-2, ATE within PF_ATE_BOUND_M; each back end's host
+   wall; K7 held to its plain version (1e-4 of max|X|) on the first
+   input the resumed run gave it, the main path's own shape (~60
+   vertices x 1 + 12 R columns, R the Woodbury extras; 169, five thread
+   blocks, at phase 10's seeds), timed spun and unspun beside the plain
+   version and the dense torch.linalg.solve of the same system: the
+   numbers of K7's row; (c) a KITTI-00-sized graph (4541 vertices) with
+   odometry noise, revisit loop closures, one forward closure and one
+   gross outlier: run_optimize_robust on the host and with
+   backend="device", the wall of each, rounds, chi2, the largest
+   translation difference, the outlier gone; then K7 held to its plain
+   version on the first lambda's system of a 1000-vertex cut (1e-4 of
+   max|X|) and timed spun and unspun at 1000 and 4541 vertices, the plain
+   version once at 1000, and the dense torch.linalg.solve of the same
+   1000-vertex system (the row's `at_cut` and `at_4541`).
 
 With --spread N the main path, the per-frame path, the SGBM main path and
 the realtime app's sgbm and lk runs are run again with RANSAC seeds 1..N
@@ -166,6 +192,24 @@ LK_STATUS_MIN, LK_X_TOL = 0.995, 1e-3
 # 0.0243 m and with LK 0.0050 m (0 lost, 14 loop closures each)
 SGBM_ATE_BOUND_M = 0.585
 RT_ATE_BOUND_M = {"sgbm": 0.033, "lk": 0.0103}
+
+
+# the back-end phase's graph at a size users run: KITTI odometry
+# sequence 00's 4541 frames, one node per frame as the Mapper keeps them.
+# A 100-frame circuit (1 m per frame) driven again and again; every 5th
+# frame of a lap closes a loop to the same place a lap before (from = new,
+# to = old); odometry noise as tests/test_optim.py:55-83's make_noisy_loop
+# (0.05 m and 0.01 rad per axis, Omega = 100 I); one forward closure (old
+# -> new, a Woodbury extra) and one gross outlier closure
+KITTI00_FRAMES = 4541
+BE_LAP, BE_EVERY, BE_SEED = 100, 5, 13
+BE_CUT = 1000           # K7 against its plain version on this many vertices
+BE_CHECKPOINT = 30      # frames 0-29, then a resume (phase 14b)
+# host vs device back end (f32 vs f64): tests/test_dist.py:124-125;
+# device vs device-dense: tests/test_dist.py:172-175
+BE_HOST_TOL = dict(t=5e-2, chi2=0.1)
+BE_DENSE_TOL = dict(t=2e-2, chi2=2e-3)
+K7_TOL = 1e-4           # of max|X|: f32, sums possibly in another order
 
 
 def log(msg):
@@ -1067,7 +1111,7 @@ def per_frame_phase(workdir, rows):
                              f"for {sorted(refine_args)} only")
     pf_kernel_phase(rows, frame0, refine_args["vo"], refine_args["lc"], cfg)
     pf_paeth_phase(seq, images, workdir, cfg, res)
-    return seq, res["fps"], launches
+    return seq, res, launches
 
 
 def pf_paeth_phase(seq, images, workdir, cfg, first):
@@ -1437,6 +1481,397 @@ def realtime_spread_phase(seq, workdir, n):
             f"{min(ates):.4f}-{max(ates):.4f} m")
 
 
+def graph_ate(optimized, mapper):
+    """ATE of optimized poses against the ground truth of the Mapper's
+    nodes, as cli/slam_batch.py scores it."""
+    from tpuslam_torch.geometry.kitti_metric import ate_rmse
+    ids = [i for i in sorted(optimized)
+           if mapper.nodes.get(i) is not None and
+           mapper.nodes[i].frame.gt_pose is not None]
+    return ate_rmse(np.stack([mapper.nodes[i].frame.gt_pose for i in ids]),
+                    np.stack([optimized[i] for i in ids]))
+
+
+def pose_diff(a, b):
+    """The largest translation difference of two pose dicts (same ids)."""
+    if sorted(a) != sorted(b):
+        raise AssertionError("the two pose graphs hold other vertices")
+    return max(float(np.abs(np.asarray(a[k])[:3, 3] -
+                            np.asarray(b[k])[:3, 3]).max()) for k in a)
+
+
+def hold_backends(what, got, ref, tol):
+    """Hold a (poses, chi2) result to a reference one within `tol`."""
+    diff = pose_diff(got[0], ref[0])
+    rel = abs(got[1] - ref[1]) / (ref[1] + 1e-9)
+    if not (diff <= tol["t"] and rel <= tol["chi2"]):
+        raise AssertionError(f"{what}: translations differ by {diff} m "
+                             f"(tolerance {tol['t']}), chi2 {got[1]} vs "
+                             f"{ref[1]} (rel {rel}, tolerance {tol['chi2']})")
+    return diff, rel
+
+
+def counting_iterations():
+    """Count the LM iterations of the sparse and dense device solvers, and
+    keep K7's first input (a copy) and the (n, m) of each of its calls.
+    Returns (the counts, K7's inputs, restore)."""
+    from tpuslam_torch.optim import device as DEV
+    counts = {"lm_solve_sparse": 0, "lm_solve": 0}
+    k7 = {"first": None, "shapes": []}
+    origs = {k: getattr(DEV, k) for k in (*counts, "thomas_solve_cuda")}
+
+    def counted(name):
+        def call(*args, iterations=10, **kw):
+            counts[name] += iterations
+            return origs[name](*args, iterations=iterations, **kw)
+        return call
+
+    def kept(D, S, B, lam):
+        if k7["first"] is None:
+            k7["first"] = tuple(a.clone() for a in (D, S, B, lam))
+        k7["shapes"].append((B.shape[0], B.shape[2]))
+        return origs["thomas_solve_cuda"](D, S, B, lam)
+    for k in counts:
+        setattr(DEV, k, counted(k))
+    DEV.thomas_solve_cuda = kept
+    return counts, k7, lambda: [setattr(DEV, k, v) for k, v in origs.items()]
+
+
+def timed_robust(poses, links, cfg, backend):
+    """run_optimize_robust on the card's host wall; returns ((poses,
+    chi2), seconds, K7 launches, plain solves, the link set of each
+    round)."""
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.optim import pose_graph as PG
+    rounds, orig = [], PG.get_connected_graph
+
+    def rec(root, p, lk):
+        rounds.append({(x.from_id, x.to_id) for x in lk.values()})
+        return orig(root, p, lk)
+    PG.get_connected_graph = rec
+    try:
+        _cuda.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = PG.run_optimize_robust(poses, links, cfg.final_iterations,
+                                     cfg, backend=backend)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        PG.get_connected_graph = orig
+    return (out, dt, _cuda.LAUNCHES["thomas"], _cuda.PLAIN_CALLS["thomas"],
+            rounds)
+
+
+def backend_phase(seq, workdir, straight, rows):
+    """Phase 14 (a) and (b): the batch app with -device-opt over the
+    per-frame sequence, cut after frame 29 with a checkpoint and resumed
+    to the end; the resumed run is (a)'s run, every counter reset just
+    before it.  Then the replay of its map CSVs."""
+    import os
+    from tpuslam_torch.cli import optimize_replay, slam_batch
+    from tpuslam_torch.io.dataset import load_poses
+    from tpuslam_torch.kernels import _cuda
+    cfg = pf_config()
+
+    cp = os.path.join(workdir, "be_checkpoint.npz")
+    t0 = time.perf_counter()
+    slam_batch.run(seq, cfg, num_images=BE_CHECKPOINT - 1, quiet=True,
+                   opt_backend="device", checkpoint_every=BE_CHECKPOINT,
+                   checkpoint_path=cp,
+                   out_dir=os.path.join(workdir, "be_part1"))
+    t1 = time.perf_counter()
+    part2 = os.path.join(workdir, "be_part2")
+    counts, k7_in, restore = counting_iterations()
+    try:
+        _cuda.reset_counters()
+        torch.cuda.synchronize()
+        res = slam_batch.run(seq, cfg, quiet=True, opt_backend="device",
+                             resume_from=cp, out_dir=part2)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    t2 = time.perf_counter()
+    launches, plain = _cuda.LAUNCHES["thomas"], _cuda.PLAIN_CALLS["thomas"]
+    iters = counts["lm_solve_sparse"]
+
+    # (b) the resumed run against phase 10's straight run, bit for bit
+    a, b = straight["mapper"], res["mapper"]
+    pa, la = a.get_graph()
+    pb, lb = b.get_graph()
+    same = (sorted(pa) == sorted(pb) and
+            all(np.array_equal(pa[i], pb[i]) for i in pa) and
+            sorted((x.from_id, x.to_id, x.type) for x in la.values()) ==
+            sorted((x.from_id, x.to_id, x.type) for x in lb.values()) and
+            len(a.vwd) == len(b.vwd) and
+            all(a.nodes[i].words == b.nodes[i].words for i in a.nodes) and
+            np.array_equal(straight["vo_poses"], res["vo_poses"]))
+    if not same:
+        raise AssertionError("back end (b): the resumed run differs from "
+                             "the straight run")
+    replay = optimize_replay.run(
+        os.path.join(part2, "map_poses.csv"),
+        os.path.join(part2, "map_links.csv"),
+        out_path=os.path.join(workdir, "be_replay.csv"), quiet=True)
+    d_replay = pose_diff(replay["optimized"], load_poses(
+        os.path.join(part2, "optimized_poses.csv")))
+    if not d_replay <= 1e-3:
+        raise AssertionError(f"back end (b): the replay differs from the "
+                             f"batch app's optimized poses by {d_replay}")
+    log(f"# back end (b): slam_batch -device-opt over frames 0-"
+        f"{BE_CHECKPOINT - 1} with a checkpoint ({os.path.getsize(cp)} "
+        f"bytes) {t1 - t0:.2f} s, resumed to frame {res['n_frames'] - 1} "
+        f"{t2 - t1:.2f} s: Mapper ids, poses, links, words and VO poses "
+        f"equal phase 10's straight run bit for bit; the replay (host back "
+        f"end) of its map CSVs within {d_replay:.2e} m of its "
+        f"optimized_poses.csv (CSV round trip, tolerance 1e-3)")
+
+    # (a) the resumed run's device back end
+    log(f"# back end (a): the resumed run's pose graph: {res['n_nodes']} "
+        f"nodes, {res['n_links']} links, {res['n_loop_closures']} loop "
+        f"closures; {iters} sparse LM iterations ({counts['lm_solve']} "
+        f"dense), K7 launched {launches} times, plain solves {plain}; "
+        f"ATE={res['ate_m']:.4f} m")
+    if not (iters > 0 and launches >= iters and plain == 0):
+        raise AssertionError(f"back end (a): K7 launches {launches} for "
+                             f"{iters} LM iterations, plain {plain}")
+    if not res["ate_m"] <= PF_ATE_BOUND_M:
+        raise AssertionError(f"back end (a): ATE {res['ate_m']} m above "
+                             f"{PF_ATE_BOUND_M} m")
+    walls, out = {}, {}
+    for backend in ("host", "device", "device-dense"):
+        out[backend], walls[backend], _, _, rounds = timed_robust(
+            pb, lb, cfg.optimizer, backend)
+    app = (res["optimized"], res["chi2"])
+    d_host, r_host = hold_backends("back end (a), device vs host", app,
+                                   out["host"], BE_HOST_TOL)
+    d_dense, r_dense = hold_backends("back end (a), dense vs device",
+                                     out["device-dense"], out["device"],
+                                     BE_DENSE_TOL)
+    ate = {k: graph_ate(v[0], b) for k, v in out.items()}
+    # the device back end twice on one graph: its scatter-adds are atomics
+    rerun = pose_diff(app[0], out["device"][0])
+    log(f"# back end (a): the device back end run twice on the same graph "
+        f"(the app's, then alone): bit for bit "
+        f"{rerun == 0.0 and app[1] == out['device'][1]}, translations "
+        f"within {rerun:.3e} m, chi2 {app[1]!r} vs {out['device'][1]!r}")
+    log(f"# back end (a): robust pose graph ({len(rounds)} rounds) host wall"
+        f" host {walls['host']:.3f} s, device {walls['device']:.3f} s, "
+        f"device-dense {walls['device-dense']:.3f} s; chi2 host "
+        f"{out['host'][1]:.6g}, the app's device {app[1]:.6g} (rel "
+        f"{r_host:.2e}), device-dense {out['device-dense'][1]:.6g} (rel to "
+        f"device {r_dense:.2e}); translations: device vs host {d_host:.3e} "
+        f"m, dense vs device {d_dense:.3e} m; ATE host {ate['host']:.5f}, "
+        f"device {ate['device']:.5f} ({ate['device'] - ate['host']:+.2e}),"
+        f" device-dense {ate['device-dense']:.5f} "
+        f"({ate['device-dense'] - ate['host']:+.2e}) m")
+    # K7 on the main path's own input: the first system the resumed run
+    # gave it (the Woodbury extras' P columns included)
+    shapes = sorted(set(k7_in["shapes"]))
+    log(f"# back end (a): K7's (n, m) in the resumed run: {shapes}")
+    main = hold_k7("the first system the resumed run's pose graph gave it",
+                   *k7_in["first"], plain_runs=3)
+    rows["thomas"] = dict(name="thomas", route="cuda",
+                          source="tpuslam_torch/csrc/thomas.cu",
+                          replaces="tpuslam/optim/device.py:546",
+                          launches=launches, **main)
+
+
+def kitti_size_graph(n=KITTI00_FRAMES, seed=BE_SEED):
+    """Phase 14 (c)'s graph (see KITTI00_FRAMES), made with numpy: ground
+    truth (n,4,4), noisy poses {id: 4x4 f32}, the link MultiMap, the gross
+    outlier's (from, to)."""
+    from tpuslam_torch.mapping.graph import (LOOP_CLOSURE, NEIGHBOR, Link,
+                                             MultiMap)
+    rng = np.random.default_rng(seed)
+    a = 2 * np.pi / BE_LAP
+    step = np.eye(4)
+    step[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                    [-np.sin(a), 0, np.cos(a)]]
+    step[:3, 3] = [0, 0, 1.0]
+    gt = [np.eye(4)]
+    for _ in range(n - 1):
+        gt.append(gt[-1] @ step)
+
+    def noise():
+        # tests/test_optim.py's rand_se3(rng, 0.05, 0.01)
+        rvec = rng.normal(0, 0.01, 3)
+        angle = np.linalg.norm(rvec)
+        m = np.eye(4)
+        if angle > 1e-12:
+            k = rvec / angle
+            K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]],
+                          [-k[1], k[0], 0]])
+            m[:3, :3] = np.eye(3) + np.sin(angle) * K + \
+                (1 - np.cos(angle)) * (K @ K)
+        m[:3, 3] = rng.normal(0, 0.05, 3)
+        return m
+
+    info = np.eye(6) * 100.0
+    poses, links, cur = {1: gt[0].astype(np.float32)}, MultiMap(), gt[0]
+    for i in range(1, n):
+        meas = np.linalg.inv(gt[i - 1]) @ gt[i] @ noise()
+        cur = cur @ meas
+        poses[i + 1] = cur.astype(np.float32)
+        links.insert(i, Link(i, i + 1, NEIGHBOR, meas.astype(np.float32),
+                             info))
+
+    def closure(i, j):
+        links.insert(i + 1, Link(i + 1, j + 1, LOOP_CLOSURE, (
+            np.linalg.inv(gt[i]) @ gt[j]).astype(np.float32), info))
+    for i in range(BE_LAP, n, BE_EVERY):
+        closure(i, i - BE_LAP)
+    closure(n - 3 * BE_LAP // 2, n - BE_LAP // 2 - 1)        # forward
+    bad = np.eye(4, dtype=np.float32)
+    bad[:3, 3] = [25.0, -13.0, 8.0]
+    outlier = (n // 2, n // 4)
+    links.insert(outlier[0], Link(*outlier, LOOP_CLOSURE, bad, info))
+    return np.stack(gt), poses, links, outlier
+
+
+def first_system(poses, links, tau):
+    """The first LM iteration's K7 input for a pose graph, as
+    lm_solve_sparse builds it on the card: D, S, B (the right-hand side,
+    then the Woodbury extras' unit P columns) and lam = tau * max_diag."""
+    from tpuslam_torch.optim import device as DEV
+    ids, P, ef, et, Z, O, fidx = DEV.graph_to_arrays(poses, links)
+    xsel, xp, xq = DEV.classify_extra_edges(ef, et, fidx)
+    nf = len(ids) - 1
+
+    def on(a, dt=torch.float32):
+        return torch.as_tensor(a, dtype=dt, device="cuda")
+    D, S, X, b, _, max_diag = DEV.sparse_system(
+        on(P), on(ef, torch.long), on(et, torch.long),
+        DEV._se3_inv(on(Z)), on(Z), on(O), nf, on(fidx, torch.long),
+        on(xsel, torch.long), on(xp, torch.long), on(xq, torch.long),
+        nf - 1)
+    lam = (tau * max_diag).reshape(())
+    B = b.reshape(nf, 6, 1)
+    if len(xp):
+        P_ = torch.zeros((nf, 6, 2 * len(xp), 6), device="cuda")
+        P_[on(np.concatenate([xp, xq]), torch.long), :,
+           torch.arange(2 * len(xp), device="cuda"), :] = \
+            torch.eye(6, device="cuda")
+        B = torch.cat([B, P_.reshape(nf, 6, -1)], dim=-1)
+    return D.contiguous(), S.contiguous(), B.contiguous(), lam
+
+
+def hold_k7(what, D, S, B, lam, plain_runs=1):
+    """K7 against its plain version on one system (K7_TOL of max|X|), both
+    timed: K7 spun and unspun, the plain version unspun.  Returns the
+    numbers of K7's row for this shape."""
+    from tpuslam_torch.optim import device as DEV
+    from tpuslam_torch.tools.timing import bound, call_ms, time_ms
+    kx = DEV.thomas_solve_cuda(D, S, B, lam)
+    px = DEV._thomas_solve(D, S, B, lam)
+    torch.cuda.synchronize()
+    err = max_abs_err(kx, px)
+    rel_err = err / float(px.abs().max())
+    if not rel_err <= K7_TOL:
+        raise AssertionError(f"K7, {what}: {rel_err} of max|X| from its "
+                             f"plain version (tolerance {K7_TOL})")
+    n, m = B.shape[0], B.shape[2]
+    b_ms, b_by = bound(*k7_bound(n, m))
+    k_ms = time_ms(lambda: DEV.thomas_solve_cuda(D, S, B, lam))
+    k_call = call_ms(lambda: DEV.thomas_solve_cuda(D, S, B, lam))
+    p_ms = call_ms(lambda: DEV._thomas_solve(D, S, B, lam), runs=plain_runs)
+    # the library yardstick: one dense solve of the same (6n)^2 system
+    A = torch.zeros((n, 6, n, 6), device="cuda")
+    k_ = torch.arange(n, device="cuda")
+    A[k_, :, k_, :] = D + lam * torch.eye(6, device="cuda")
+    A[k_[1:], :, k_[:-1], :] = S
+    A[k_[:-1], :, k_[1:], :] = S.transpose(1, 2)
+    A = A.reshape(6 * n, 6 * n)
+    rhs = B.reshape(6 * n, m)
+    lib_x = torch.linalg.solve(A, rhs).reshape(n, 6, m)
+    lib_ms = time_ms(lambda: torch.linalg.solve(A, rhs))
+    lib_err = max_abs_err(lib_x, px) / float(px.abs().max())
+    del A
+    log(f"# K7 at {n} vertices x {m} columns ({what}): max abs err {err} "
+        f"({rel_err:.3e} of max|X|, tolerance {K7_TOL}; bit for bit: "
+        f"{bool(torch.equal(kx, px))}); K7 {k_ms:.4f} ms spun ({k_call:.4f}"
+        f" unspun, {k_ms * 1e3 / (2 * n):.3f} us per step, "
+        f"{(m + 35) // 36} blocks), plain {p_ms:.1f} ms (unspun, "
+        f"{plain_runs} runs), torch.linalg.solve dense {lib_ms:.4f} ms "
+        f"(differs by {lib_err:.3e} of max|X|), bound {b_ms:.5f} ms "
+        f"({b_by})")
+    return dict(n=n, m=m, max_abs_err=err, rel_err=rel_err, ms=k_ms,
+                call_ms=k_call, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, step_us=k_ms * 1e3 / (2 * n),
+                bit_equal=bool(torch.equal(kx, px)))
+
+
+def k7_bound(n, m):
+    """K7's bytes (D, S, B read; L, G, X written, f32) and operations for
+    an (n, 6, m) solve: per forward step 6 + m column solves (72 each),
+    36 + 6m entries of C_k and g_k (12 each) and a factorisation (~100);
+    per backward step m columns of 72 + 72."""
+    nbytes = 4 * (36 * n + 36 * (n - 1) + 6 * n * m + 36 * n +
+                  2 * 6 * n * m)
+    ops = n * ((6 + m) * 72 + (36 + 6 * m) * 12 + 100 + 144 * m)
+    return nbytes, ops
+
+
+def backend_scale_phase(rows):
+    """Phase 14 (c): the robust pose graph at KITTI 00's size on the host
+    and the device back ends, then K7 against its plain version, timed."""
+    from tpuslam_torch.config import OptimizerConfig
+    from tpuslam_torch.mapping.graph import MultiMap
+    from tpuslam_torch.optim import device as DEV
+    from tpuslam_torch.tools.timing import bound, call_ms, time_ms
+    cfg = OptimizerConfig()
+    gt, poses, links, outlier = kitti_size_graph()
+    n = len(poses)
+    out, walls, k7, n_rounds = {}, {}, {}, {}
+    for backend in ("host", "device"):
+        out[backend], walls[backend], k7[backend], plain, rounds = \
+            timed_robust(poses, links, cfg, backend)
+        n_rounds[backend] = len(rounds)
+        if outlier not in rounds[0] or outlier in rounds[-1]:
+            raise AssertionError(f"back end (c), {backend}: the outlier "
+                                 f"{outlier} was not ejected")
+    if not (k7["device"] >= 5 * (n_rounds["device"] - 1) + 20 and
+            plain == 0 and k7["host"] == 0):
+        raise AssertionError(f"back end (c): K7 launches {k7}, plain "
+                             f"{plain}")
+    diff, rel = hold_backends("back end (c), device vs host", out["device"],
+                              out["host"], BE_HOST_TOL)
+    ate = {k: float(np.sqrt(np.mean(np.sum(
+        (np.stack([v[0][i + 1] for i in range(n)])[:, :3, 3] -
+         gt[:, :3, 3]) ** 2, axis=1)))) for k, v in out.items()}
+    log(f"# back end (c): {n} vertices, {len(links)} links; robust pose "
+        f"graph host wall host {walls['host']:.3f} s ({n_rounds['host']} "
+        f"rounds), device {walls['device']:.3f} s ({n_rounds['device']} "
+        f"rounds, K7 launched {k7['device']} times); chi2 host "
+        f"{out['host'][1]:.6g}, device {out['device'][1]:.6g} (rel "
+        f"{rel:.2e}); largest translation difference {diff:.3e} m "
+        f"(tolerance {BE_HOST_TOL['t']}); ATE against the ground truth "
+        f"host {ate['host']:.4f} m, device {ate['device']:.4f} m; the "
+        f"outlier {outlier} ejected by both")
+
+    # K7 against its plain version on the first lambda's system of the
+    # first BE_CUT vertices, and at the whole graph's size
+    cut = {i: poses[i] for i in range(1, BE_CUT + 1)}
+    D, S, B, lam = first_system(cut, MultiMap(
+        (k, x) for k, x in links.items()
+        if x.from_id <= BE_CUT and x.to_id <= BE_CUT), cfg.tau)
+    cut = hold_k7(f"the first lambda's system of a {BE_CUT}-vertex cut",
+                  D, S, B, lam)
+    D, S, B, lam = first_system(poses, links, cfg.tau)
+    nf, mf = B.shape[0], B.shape[2]
+    f_ms = time_ms(lambda: DEV.thomas_solve_cuda(D, S, B, lam))
+    f_call = call_ms(lambda: DEV.thomas_solve_cuda(D, S, B, lam))
+    fb_ms, fb_by = bound(*k7_bound(nf, mf))
+    log(f"# K7 at {nf} vertices x {mf} columns (the whole graph's first "
+        f"system): {f_ms:.4f} ms spun ({f_call:.4f} unspun, "
+        f"{f_ms * 1e3 / (2 * nf):.3f} us per step), bound {fb_ms:.5f} ms "
+        f"({fb_by})")
+    rows["thomas"].update(
+        launches_scale=k7["device"], at_cut=cut,
+        at_4541=dict(n=nf, m=mf, ms=f_ms, call_ms=f_call, bound_ms=fb_ms,
+                     bound_by=fb_by, step_us=f_ms * 1e3 / (2 * nf)))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--spread", type=int, default=0)
@@ -1452,7 +1887,7 @@ def main():
 
     t0 = time.perf_counter()
     took = _cuda.build_all()
-    for name in _cuda.KERNELS + _cuda.TOOLS:
+    for name in _cuda.ALL:
         _cuda.launcher(name)
     t1 = time.perf_counter()
     native_loader.get_lib()
@@ -1491,8 +1926,11 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         ingest_fps = ingest_phase(workdir, camera, cfg, lefts, rights,
                                   stamps, gt, staged, items, infos, fps)
-        seq, pf_fps, pf_launches = per_frame_phase(workdir, rows)
+        seq, pf_res, pf_launches = per_frame_phase(workdir, rows)
+        pf_fps = pf_res["fps"]
         rt = realtime_phase(seq, workdir)
+        backend_phase(seq, workdir, pf_res, rows)
+        backend_scale_phase(rows)
         log(f"# fps: default configuration + Mapper {fps:.3f}, the same "
             f"from PNG files (run_ingest) {ingest_fps:.3f}, slice "
             f"{slice_fps:.3f}, per-frame batch path {pf_fps:.3f}, SGBM main "
@@ -1526,8 +1964,10 @@ def main():
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
         "library_ms", "via", "tool_launches", "phases", "wide",
-        "per_frame", "per_frame_loop_closure") if k in rows[n]}
-        for n in _cuda.KERNELS + _cuda.TOOLS]
+        "per_frame", "per_frame_loop_closure", "launches_scale",
+        "n", "m", "rel_err", "bit_equal", "step_us", "at_cut", "at_4541")
+        if k in rows[n]}
+        for n in _cuda.ALL]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

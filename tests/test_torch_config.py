@@ -26,7 +26,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["config.py", "geometry/transform.py", "geometry/camera.py",
           "geometry/kitti_metric.py", "vo/frame.py", "mapping/graph.py",
-          "runtime/perf.py", "mapping3d/octree_bt.py"]
+          "runtime/perf.py", "mapping3d/octree_bt.py", "runtime/logger.py"]
 # numpy functions and classes copied into a module of the port that also
 # holds torch code: (module path, name)
 COPIED_DEFS = [("kernels/gftt.py", "select_from_candidates"),
@@ -46,8 +46,11 @@ COPIED_DEFS = [("kernels/gftt.py", "select_from_candidates"),
                ("vo/odometry.py", "OdomInfo"),
                ("kernels/rectify.py", "RectCamera"),
                ("kernels/rectify.py", "rect_map_fixed"),
-               ("kernels/rectify.py", "rect_map_float")]
+               ("kernels/rectify.py", "rect_map_float"),
+               ("optim/device.py", "graph_to_arrays"),
+               ("optim/device.py", "classify_extra_edges")]
 KERNELS = ["stereo_bm", "gftt", "orb", "median", "lr_check", "lm_refine"]
+BACKEND = ["thomas"]
 
 
 def _without_docstrings(tree):
@@ -196,8 +199,9 @@ def test_frame_and_odominfo_fields():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port, its main path, its batch and realtime apps and
-    its depth engines included, loads no JAX, no tpuslam and no Pillow."""
+    """Importing the port, its main path, its batch and realtime apps, its
+    depth engines, its pose-graph device back end, checkpoints and replay
+    included, loads no JAX, no tpuslam and no Pillow."""
     code = ("import sys; import tpuslam_torch; "
             "import tpuslam_torch.runtime.fast_pipeline, "
             "tpuslam_torch.io.synthetic, tpuslam_torch.convert, "
@@ -208,7 +212,9 @@ def test_import_leaves_jax_out():
             "tpuslam_torch.io.native_loader, tpuslam_torch.io.resize, "
             "tpuslam_torch.cli.slam_realtime, tpuslam_torch.kernels.sgbm, "
             "tpuslam_torch.kernels.lk_stereo, tpuslam_torch.kernels.rectify, "
-            "tpuslam_torch.runtime.telemetry; "
+            "tpuslam_torch.runtime.telemetry, tpuslam_torch.optim.device, "
+            "tpuslam_torch.runtime.checkpoint, tpuslam_torch.runtime.logger, "
+            "tpuslam_torch.cli.optimize_replay; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'tpuslam', 'PIL')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -239,10 +245,11 @@ def test_precision_pinned():
 
 
 def _kernel_cases():
-    """name -> (kernel wrapper, dispatcher, CPU arguments) for K1-K6."""
+    """name -> (kernel wrapper, dispatcher, CPU arguments) for K1-K7."""
     from tpuslam_torch.config import StereoBMConfig
     from tpuslam_torch.kernels import stereo_bm as BM, gftt as G, orb as O
     from tpuslam_torch.kernels import pnp as P
+    from tpuslam_torch.optim import device as DEV
     from tpuslam_torch.vo import fused as F
     img = torch.zeros((1, 40, 48), dtype=torch.uint8)
     img[:, 10:20, 12:30] = 200
@@ -258,6 +265,9 @@ def _kernel_cases():
     lm = (obj, torch.rand(16, 2) * 100, torch.ones(16),
           torch.ones(16, dtype=torch.bool), torch.eye(3), torch.zeros(3),
           torch.zeros(3))
+    blocks = torch.eye(6).repeat(4, 1, 1) * 4.0
+    thomas = (blocks, blocks[:3] * 0.5, torch.ones(4, 6, 13),
+              torch.tensor(0.1))
     return {
         "stereo_bm": (BM.stereo_bm_cuda, BM.stereo_bm, (img, img, cfg)),
         "gftt": (G.gftt_response_dil_cuda,
@@ -269,10 +279,11 @@ def _kernel_cases():
                      (disp, minsad, StereoBMConfig())),
         "lm_refine": (P.refine_lm_errors_cuda, P.refine_lm_with_errors_auto,
                       lm),
+        "thomas": (DEV.thomas_solve_cuda, DEV.thomas_solve, thomas),
     }
 
 
-@pytest.mark.parametrize("name", KERNELS)
+@pytest.mark.parametrize("name", KERNELS + BACKEND)
 def test_kernel_wrapper_refuses_cpu_tensors(name):
     """A kernel wrapper checks its arguments before any build or launch."""
     from tpuslam_torch.kernels import _cuda
@@ -283,7 +294,7 @@ def test_kernel_wrapper_refuses_cpu_tensors(name):
     assert _cuda.LAUNCHES[name] == 0
 
 
-@pytest.mark.parametrize("name", KERNELS)
+@pytest.mark.parametrize("name", KERNELS + BACKEND)
 def test_dispatch_takes_plain_version_on_cpu(name):
     """On a CPU tensor the dispatcher runs the plain version (counted
     once) and launches nothing."""
@@ -329,11 +340,15 @@ def test_shape_sweep_refuses(monkeypatch, argv, match):
 def test_kernel_table_names_every_kernel():
     """Every launcher has a signature, counters and a source; the phase
     harness is a tool in K1's file and K3's two halves tools in K3's, not
-    kernels of the main path."""
+    kernels of the main path; K7 is the pose graph's device back end's own
+    group, built like the rest and with FMA contraction off."""
     from tpuslam_torch.kernels import _cuda
     assert list(_cuda.KERNELS) == KERNELS
     assert list(_cuda.TOOLS) == ["stereo_bm_phase", "orb_blur", "orb_tests"]
-    names = KERNELS + list(_cuda.TOOLS)
+    assert list(_cuda.BACKEND) == BACKEND
+    names = KERNELS + list(_cuda.TOOLS) + BACKEND
+    assert list(_cuda.ALL) == names
+    assert _cuda.EXTRA_FLAGS["thomas"] == ["-fmad=false"]
     assert set(_cuda.SIGNATURES) == set(names)
     assert set(_cuda.LAUNCHES) == set(_cuda.PLAIN_CALLS) == set(names)
     assert _cuda.source("stereo_bm_phase") == "stereo_bm"
@@ -357,6 +372,7 @@ def _entry_points():
     from tpuslam_torch.mapping.chunk_dict import ChunkDictDriver
     from tpuslam_torch.mapping.dictionary import VWDictionary
     from tpuslam_torch.mapping.mapper import Mapper
+    from tpuslam_torch.optim import run_optimize, run_optimize_robust
     from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
     from tpuslam_torch.vo import fused, registration
     return {
@@ -388,6 +404,8 @@ def _entry_points():
         "write_sequence": write_sequence,
         "build_occupancy_grid_map": occupancy.build_occupancy_grid_map,
         "insert_depth_frame": occupancy.insert_depth_frame,
+        "run_optimize": run_optimize,
+        "run_optimize_robust": run_optimize_robust,
     }
 
 
@@ -406,10 +424,39 @@ def _entry_points():
                                   "StereoRectifier",
                                   "StereoRectifier.from_reference_calib",
                                   "build_occupancy_grid_map",
-                                  "insert_depth_frame"])
+                                  "insert_depth_frame", "run_optimize",
+                                  "run_optimize_robust"])
 def test_entry_point_defaults_to_the_card(name):
     """Every entry point runs on the card unless the caller asks for the
     CPU (read from the signature: nothing is built here)."""
     import inspect
     fn = _entry_points()[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_logger_prints_what_tpuslam_prints(tmp_path, capsys, monkeypatch):
+    """The port's Logger (a copy) prints, buffers and flushes the lines
+    tpuslam's does, the milliseconds since its start aside, and raises
+    SlamError on an error after flushing log.txt."""
+    import re
+    from tpuslam.runtime import logger as J
+    from tpuslam_torch.runtime import logger as T
+    monkeypatch.chdir(tmp_path)
+    out = {}
+    for pkg in (J, T):
+        log = pkg.Logger(level=pkg.LOG_LEVEL_DEBUG)
+        log.debug("d")
+        log.info("i")
+        log.warn("w")
+        with pytest.raises(pkg.SlamError, match="test_torch_config.py:.* e"):
+            log.error("e")
+        printed = capsys.readouterr().out
+        flushed = open("log.txt").read()
+        quiet = pkg.Logger(quiet=True)
+        quiet.info("hidden")
+        assert capsys.readouterr().out == ""
+        out[pkg] = [re.sub(r"^(\[\w+\]) +[\d.]+ ", r"\1 ", line)
+                    for line in (printed + flushed).splitlines()]
+    assert out[T] == out[J]
+    assert len(out[T]) == 8 and out[T][0].startswith("[DEBUG] ")
+    assert out[T][3].startswith("[ERROR] test_torch_config.py:")

@@ -414,7 +414,8 @@ def test_mapper_loop_closure_runs_kernels():
 
 def test_default_config_chunk_runs_all_kernels():
     """The fused chunk step in SlamConfig() on the card: K1-K3 and K5 once
-    per chunk, K4 and K6 once per frame, no plain version."""
+    per chunk, K4 and K6 once per frame, no tool launcher, K7 (the pose
+    graph's) never, no plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from tpuslam_torch.config import SlamConfig
@@ -440,7 +441,7 @@ def test_default_config_chunk_runs_all_kernels():
     assert dict(_cuda.LAUNCHES) == dict(stereo_bm=1, gftt=1, orb=1,
                                         median=B, lr_check=1, lm_refine=B,
                                         stereo_bm_phase=0, orb_blur=0,
-                                        orb_tests=0)
+                                        orb_tests=0, thomas=0)
     assert not any(_cuda.PLAIN_CALLS.values())
 
 
@@ -719,3 +720,103 @@ def test_realtime_app_on_the_card_equals_batch(tmp_path):
     for nid in b["optimized"]:
         np.testing.assert_allclose(r["optimized"][nid], b["optimized"][nid],
                                    rtol=0, atol=1e-5)
+
+
+# --- K7: the pose graph's block-Thomas solve --------------------------------
+
+def _block_tridiagonal(n, m, seed=0):
+    """A symmetric positive definite block-tridiagonal system (D (n,6,6),
+    S (n-1,6,6), B (n,6,m)) made with numpy from `seed`: each diagonal
+    block dominates its two neighbours."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(0, 1, (n, 6, 6))
+    D = A @ A.transpose(0, 2, 1) + 12 * np.eye(6)
+    S = rng.normal(0, 0.5, (n - 1, 6, 6))
+    B = rng.normal(0, 1, (n, 6, m))
+    return [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+            for a in (D, S, B)]
+
+
+@pytest.mark.parametrize("n, m", [(2, 1), (2, 13), (61, 1), (61, 13),
+                                  (1000, 1), (1000, 13), (61, 37),
+                                  (61, 337)])
+def test_thomas_kernel(n, m):
+    """K7 equals its plain version on the card within 1e-4 of max|X| (f32;
+    the two take their sums in one order, so it is expected bit for bit),
+    and solves the system; 37 columns take two thread blocks of one
+    launch, and 337 (28 Woodbury extras, about the per-frame graph's 27)
+    ten."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.optim import device as DEV
+    D, S, B = _block_tridiagonal(n, m, seed=n * 100 + m)
+    lam = torch.tensor(0.25, device="cuda")
+    _cuda.reset_counters()
+    got = DEV.thomas_solve(D, S, B, lam)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["thomas"] == 1
+    assert _cuda.PLAIN_CALLS["thomas"] == 0
+    want = DEV._thomas_solve(D, S, B, lam)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-4, err
+    # the residual of the solve, in f64
+    Dl = D.double() + 0.25 * torch.eye(6, device="cuda", dtype=torch.float64)
+    x = got.double()
+    r = torch.einsum("nij,njc->nic", Dl, x) - B.double()
+    r[1:] += torch.einsum("nij,njc->nic", S.double(), x[:-1])
+    r[:-1] += torch.einsum("nji,njc->nic", S.double(), x[1:])
+    assert float(r.abs().max()) < 1e-4 * float(B.abs().max()) * 10
+
+
+def test_robust_device_backend_on_the_card_equals_cpu():
+    """run_optimize_robust(backend="device") on the card: K7 at least once
+    per LM iteration and no plain solve; poses within translations 5e-2
+    and chi2 within 10 % of the same call on the CPU, and the gross loop
+    closure ejected (an 80-vertex noisy loop, as tests/test_dist.py's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.geometry.transform import from_rpy_xyz
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.mapping.graph import (Link, MultiMap, NEIGHBOR,
+                                             LOOP_CLOSURE)
+    from tpuslam_torch.optim import pose_graph as PG
+    rng = np.random.default_rng(5)
+    n = 80
+    gt = [from_rpy_xyz(0, 0, 0, 0, 2 * np.pi * i / n, 0) @
+          from_rpy_xyz(0, 0, 12.0, 0, 0, 0) for i in range(n)]
+    poses, links, cur = {1: gt[0].astype(np.float32)}, MultiMap(), gt[0]
+    for i in range(1, n):
+        meas = np.linalg.inv(gt[i - 1]) @ gt[i] @ from_rpy_xyz(
+            *rng.normal(0, 0.05, 3), *rng.normal(0, 0.01, 3))
+        cur = cur @ meas
+        poses[i + 1] = cur.astype(np.float32)
+        links.insert(i, Link(i, i + 1, NEIGHBOR, meas.astype(np.float32),
+                             np.eye(6) * 100.0))
+    links.insert(n, Link(n, 1, LOOP_CLOSURE, (np.linalg.inv(gt[-1]) @ gt[0])
+                         .astype(np.float32), np.eye(6) * 100.0))
+    bad = np.eye(4, dtype=np.float32)
+    bad[:3, 3] = [25.0, -13.0, 8.0]
+    links.insert(40, Link(40, 5, LOOP_CLOSURE, bad, np.eye(6) * 100.0))
+    rounds, orig = [], PG.get_connected_graph
+
+    def rec(root, p, lk):
+        rounds.append(sorted((x.from_id, x.to_id) for x in lk.values()))
+        return orig(root, p, lk)
+    PG.get_connected_graph = rec
+    try:
+        _cuda.reset_counters()
+        card, card_chi2 = PG.run_optimize_robust(poses, links, 20,
+                                                 backend="device")
+        torch.cuda.synchronize()
+        launches, plain = _cuda.LAUNCHES["thomas"], _cuda.PLAIN_CALLS["thomas"]
+    finally:
+        PG.get_connected_graph = orig
+    cpu, cpu_chi2 = PG.run_optimize_robust(poses, links, 20,
+                                           backend="device", device="cpu")
+    assert (40, 5) in rounds[0] and (40, 5) not in rounds[-1]
+    assert launches >= 5 * (len(rounds) - 1) + 20 and plain == 0
+    for k in cpu:
+        np.testing.assert_allclose(card[k][:3, 3], cpu[k][:3, 3], rtol=0,
+                                   atol=5e-2)
+    assert abs(card_chi2 - cpu_chi2) <= 0.1 * cpu_chi2 + 1e-9

@@ -244,11 +244,12 @@ def test_default_config_matches_reference(default_runs, fwd_seq):
 def test_default_config_takes_every_plain_version(default_runs):
     """On the CPU the default run goes through the plain version of every
     kernel: StereoBM, the LR check, GFTT and ORB once per chunk, the
-    medians and the LM refine once per frame (one refine round)."""
+    medians and the LM refine once per frame (one refine round); the pose
+    graph's block-Thomas solve (K7's) never."""
     plain = default_runs[2]
     assert plain == dict(stereo_bm=2, gftt=2, orb=2, median=12,
                          lr_check=2, lm_refine=12, stereo_bm_phase=0,
-                         orb_blur=0, orb_tests=0)
+                         orb_blur=0, orb_tests=0, thomas=0)
 
 
 MEDIAN_CASES = [(1536, 0.5, False), (1536, 0.0, False), (100, 0.9, False),

@@ -2,7 +2,8 @@
 
 The pose graph's host backend is numpy/scipy in f64 in both packages and
 the port's is a copy: the same graph gives the same poses and chi2, bit
-for bit.  Bundle adjustment runs in f32 in both (torch here, XLA there);
+for bit (its device backends: tests/test_torch_device_opt.py).  Bundle
+adjustment runs in f32 in both (torch here, XLA there);
 the sums are taken in another order, so the port is held to
 tests/test_ba.py's tolerances: rms < 1e-3 px and camera translations
 within 1e-3 of the truth on a noise-free problem, with the port's and
@@ -71,14 +72,6 @@ def test_robust_pose_graph_equal(seed):
     assert chi2 == ref_chi2
     # the bad loop edge was ejected: the result closes the loop
     assert np.linalg.norm(got[24][:3, 3] - got[1][:3, 3]) < 5.0
-
-
-def test_device_backend_not_ported():
-    from tpuslam_torch.optim import run_optimize, run_optimize_robust
-    poses, links = convert.graph_from_reference(*_graph(0))
-    for fn in (run_optimize, run_optimize_robust):
-        with pytest.raises(NotImplementedError, match="A5"):
-            fn(poses, links, 5, backend="device")
 
 
 def _problem():
@@ -162,3 +155,30 @@ def test_window_ba_matches_reference(kitti_camera):
     assert worst([got[i + 1] for i in range(len(gt))]) < before * 0.5
     assert worst([got[i + 1] for i in range(len(gt))]) <= \
         worst([ref[i + 1] for i in range(len(gt))]) + 1e-3
+
+
+def test_connected_graph_rebuild_fault_matches_reference():
+    """tpuslam's get_connected_graph (the port's is a copy) keys each link
+    of its output under the vertex the walk reached it from.  On the chain
+    1-5 with loop closures 4 -> 1 and 5 -> 3 the closure 5 -> 3 ends up
+    under its `to` vertex only, so a second rebuild (a second robust
+    round) cannot find it and raises AttributeError, in both packages
+    alike (ROADMAP C)."""
+    import tpuslam.mapping.graph as JG
+    import tpuslam_torch.mapping.graph as TG
+    out = {}
+    for G in (JG, TG):
+        links = G.MultiMap()
+        eye = np.eye(4, dtype=np.float32)
+        for i in range(1, 5):
+            links.insert(i, G.Link(i, i + 1, G.NEIGHBOR, eye, np.eye(6)))
+        for a, b in ((4, 1), (5, 3)):
+            links.insert(a, G.Link(a, b, G.LOOP_CLOSURE, eye, np.eye(6)))
+        poses = {i: eye for i in range(1, 6)}
+        p1, l1 = G.get_connected_graph(1, poses, links)
+        out[G] = [(k, lk.from_id, lk.to_id) for k, lk in l1.items()]
+        assert (3, 5, 3) in out[G] and all(
+            k != 5 for k, f, t in out[G] if (f, t) == (5, 3))
+        with pytest.raises(AttributeError):
+            G.get_connected_graph(1, p1, l1)
+    assert out[TG] == out[JG]

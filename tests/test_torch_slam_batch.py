@@ -18,7 +18,13 @@ Tolerances:
 - lost and keyframe flags equal, inliers within 2, VO and optimized
   translations within 1e-3 m (registration noise, as test_torch_fused.py);
 - graph sizes and output files equal, occupied voxels within 1 % (the
-  speckle difference moves a few voxels).
+  speckle difference moves a few voxels);
+- checkpoints: a file written by either package loads in the other with
+  every field equal; a resumed run equals the straight run bit for bit
+  (the RANSAC seeds, frames_processed and node ids, are restored), as
+  tests/test_runtime.py:89-113 requires of tpuslam;
+- the pose-graph replay (host backend, a copy) equals tpuslam's bit for
+  bit.
 """
 
 import dataclasses
@@ -143,8 +149,9 @@ def _cfg():
         map_update=2, max_stm_size=2, loop_thr=0.05))
 
 
-def _recording(monkeypatch, module, frames, infos):
-    """Record the Frame and the OdomInfo of every frame of a run()."""
+def _recording(monkeypatch, module, frames, infos, odoms=None):
+    """Record the Frame and the OdomInfo of every frame of a run(), and in
+    `odoms` its Odometry."""
     extract, process = module.extract_features, module.Odometry.process
 
     def rec_frame(*args, **kw):
@@ -152,6 +159,8 @@ def _recording(monkeypatch, module, frames, infos):
         return frames[-1]
 
     def rec_info(self, frame):
+        if odoms is not None and not odoms:
+            odoms.append(self)
         infos.append(process(self, frame))
         return infos[-1]
     monkeypatch.setattr(module, "extract_features", rec_frame)
@@ -171,10 +180,10 @@ def runs(tmp_path_factory):
     seq = str(tmp_path_factory.mktemp("batch_seq"))
     make_sequence(seq, n_frames=6, width=320, height=240, f=250.0,
                   baseline=0.54, speed=0.4, yaw_rate=0.002, seed=3)
-    jf, tf, ji, ti = [], [], [], []
+    jf, tf, ji, ti, jo, to = [], [], [], [], [], []
     with pytest.MonkeyPatch.context() as mp:
-        _recording(mp, JB, jf, ji)
-        _recording(mp, TB, tf, ti)
+        _recording(mp, JB, jf, ji, jo)
+        _recording(mp, TB, tf, ti, to)
         ref = JB.run(seq, _cfg(), quiet=True,
                      out_dir=os.path.join(seq, "jax"))
         _cuda.reset_counters()
@@ -185,7 +194,7 @@ def runs(tmp_path_factory):
     raw = [np.asarray(stereo_bm(f.image_left, f.image_right, _cfg().bm,
                                 with_speckle=False)) for f in jf]
     return dict(seq=seq, ref=ref, got=got, jf=jf, tf=tf, ji=ji, ti=ti,
-                raw=raw, plain=plain)
+                raw=raw, plain=plain, j_odom=jo[0], t_odom=to[0])
 
 
 def test_frontend_matches_reference(runs):
@@ -275,15 +284,164 @@ def test_port_took_the_plain_versions(runs):
     assert plain["lm_refine"] >= 5 + runs["got"]["n_loop_closures"]
 
 
-@pytest.mark.parametrize("argv, match", [
-    pytest.param(["-resume", "state.npz"], "A5", id="argv2-A5"),
-    pytest.param(["-checkpoint-every", "5"], "A5", id="argv3-A5"),
-    pytest.param(["-device-opt"], "A5", id="argv4-A5")])
-def test_main_refuses_unported_options(tmp_path, argv, match):
+# --- checkpoints, resume and the replay -----------------------------------
+
+def _frame_state(f):
+    return [f.stamp, f.frame_id, f.kpts, f.kpts3d, f.desc, f.disparity_dec,
+            f.disp_scale, f.gt_pose]
+
+
+def _state(mapper, odom):
+    """Every field a checkpoint holds, as plain values (either package)."""
+    nodes = {}
+    for i, n in sorted(mapper.nodes.items()):
+        nodes[i] = [n.map_id, n.weight, np.asarray(n.pose), n.velocity,
+                    list(n.words), _frame_state(n.frame),
+                    [(lk.from_id, lk.to_id, lk.type, np.asarray(lk.transform),
+                      np.asarray(lk.info)) for _, lk in n.links.items()]]
+    v = mapper.vwd
+    return dict(
+        nodes=nodes, stm=list(mapper.stm), wm=dict(mapper.working_mem),
+        counters=[mapper._id_count, mapper._id_map_count,
+                  mapper._frame_processed, mapper._intermediate_count,
+                  mapper._wm_counter, mapper.last_node.id],
+        loop_closures=list(mapper.loop_closures),
+        words={w: [vw.descriptor, dict(vw.references), vw.total_references]
+               for w, vw in v.words.items()},
+        dictionary=[v._last_word_id, v._count, v._train[:v._count],
+                    v._word_ids[:v._count]],
+        odom=[odom.pose, odom.velocity_guess, odom.previous_stamp,
+              odom.frames_processed, odom.num_objects,
+              odom.distance_travelled, odom.state, odom.last_keyframe_pose,
+              _frame_state(odom.ref_frame)])
+
+
+@pytest.mark.parametrize("direction", ["port_to_tpuslam", "tpuslam_to_port"])
+def test_checkpoint_format_shared(runs, tmp_path, direction):
+    """A checkpoint saved by one package (its Mapper and Odometry at the
+    end of the fixture's run) loads into the other's fresh Mapper and
+    Odometry with every field equal."""
+    from tpuslam.mapping.mapper import Mapper as JMapper
+    from tpuslam.runtime import checkpoint as JC
+    from tpuslam.vo.odometry import Odometry as JOdometry
+    from tpuslam_torch.mapping.mapper import Mapper as TMapper
+    from tpuslam_torch.runtime import checkpoint as TC
+    from tpuslam_torch.vo.odometry import Odometry as TOdometry
+    path = str(tmp_path / "state.npz")
+    jcfg, tcfg = _cfg(), convert.config_from_reference(_cfg())
+    if direction == "port_to_tpuslam":
+        mapper, odom = runs["got"]["mapper"], runs["t_odom"]
+        TC.save_state(path, mapper, odom)
+        cam = runs["ref"]["mapper"].camera
+        m2 = JMapper(cam, jcfg.mapper, jcfg.matching, jcfg.pnp)
+        o2 = JOdometry(cam, jcfg.odometry, jcfg.matching, jcfg.pnp)
+        JC.load_state(path, m2, o2)
+    else:
+        mapper, odom = runs["ref"]["mapper"], runs["j_odom"]
+        JC.save_state(path, mapper, odom)
+        cam = runs["got"]["mapper"].camera
+        m2 = TMapper(cam, tcfg.mapper, tcfg.matching, tcfg.pnp, device="cpu")
+        o2 = TOdometry(cam, tcfg.odometry, tcfg.matching, tcfg.pnp,
+                       device="cpu")
+        TC.load_state(path, m2, o2)
+        assert m2.vwd._dev_dirty and m2._lc_thread is None
+    assert len(mapper.nodes) == 6 and len(mapper.vwd) > 0
+    np.testing.assert_equal(_state(m2, o2), _state(mapper, odom))
+
+
+@pytest.fixture(scope="module")
+def resumed(runs, tmp_path_factory):
+    """The port's run of the fixture's sequence cut after frame 2 with a
+    checkpoint, then resumed to the end, on tpuslam's draws."""
+    from tpuslam_torch.cli import slam_batch as TB
+    d = str(tmp_path_factory.mktemp("resume"))
+    cp = os.path.join(d, "cp.npz")
+    cfg = convert.config_from_reference(_cfg())
+    TB.run(runs["seq"], cfg, num_images=2, quiet=True, device="cpu",
+           out_dir=os.path.join(d, "part1"), checkpoint_every=3,
+           checkpoint_path=cp, draws_fn=_jax_draws)
+    assert os.path.exists(cp)
+    res = TB.run(runs["seq"], cfg, quiet=True, device="cpu",
+                 out_dir=os.path.join(d, "part2"), resume_from=cp,
+                 draws_fn=_jax_draws)
+    return dict(cp=cp, res=res)
+
+
+def _graph_signature(mapper):
+    poses, links = mapper.get_graph()
+    return dict(ids=sorted(poses),
+                poses=np.concatenate([poses[i].ravel()
+                                      for i in sorted(poses)]),
+                links=sorted((lk.from_id, lk.to_id, lk.type)
+                             for lk in links.values()),
+                n_words=len(mapper.vwd),
+                node_words={i: list(mapper.nodes[i].words)
+                             for i in sorted(mapper.nodes)})
+
+
+def test_resume_is_bit_identical(runs, resumed):
+    """Frames 0-2, a checkpoint, then frames 3-5 from it: the Mapper's ids,
+    poses, links, word count and node words and the VO poses equal the
+    straight run's bit for bit (tests/test_runtime.py:89-113)."""
+    straight, res = runs["got"], resumed["res"]
+    np.testing.assert_equal(_graph_signature(res["mapper"]),
+                            _graph_signature(straight["mapper"]))
+    np.testing.assert_array_equal(res["vo_poses"], straight["vo_poses"])
+    assert res["n_frames"] == 6 and len(res["vo_poses"]) == 6
+
+
+def test_optimize_replay_equals_reference(runs, tmp_path):
+    """The replay of the port's run's map CSVs: the port's (host backend,
+    a copy) equals tpuslam's bit for bit, and its CSV is written."""
+    from tpuslam.cli.optimize_replay import run as jreplay
+    from tpuslam_torch.cli.optimize_replay import main, run as treplay
+    out = os.path.join(runs["seq"], "port")
+    args = (os.path.join(out, "map_poses.csv"),
+            os.path.join(out, "map_links.csv"))
+    gt = os.path.join(runs["seq"], "poses.txt")
+    ref = jreplay(*args, gt_path=gt, quiet=True)
+    got = treplay(*args, out_path=str(tmp_path / "opt.csv"), gt_path=gt,
+                  quiet=True)
+    assert sorted(got["optimized"]) == sorted(ref["optimized"])
+    for k in ref["optimized"]:
+        np.testing.assert_array_equal(got["optimized"][k],
+                                      ref["optimized"][k])
+    for k in ("chi2", "n_poses", "n_links", "ate_m"):
+        assert got[k] == ref[k], k
+    main(["-poses", args[0], "-links", args[1], "-out",
+          str(tmp_path / "main.csv"), "-quiet"])
+    assert open(tmp_path / "main.csv").read() == \
+        open(tmp_path / "opt.csv").read()
+
+
+@pytest.mark.parametrize("option", ["-device-opt", "-checkpoint-every",
+                                    "-resume"])
+def test_main_runs_ported_options(runs, resumed, tmp_path, option):
+    """main() takes -device-opt (the pose graph's device back end, on the
+    CPU here, after a resume to keep the run short), -checkpoint-every
+    with -checkpoint, and -resume, and writes the batch app's outputs
+    (and the checkpoint)."""
     from tpuslam_torch.cli.slam_batch import main
-    with pytest.raises(NotImplementedError, match=match):
-        main(["-dir", str(tmp_path)] + argv)
-    assert os.listdir(tmp_path) == []
+    from tpuslam_torch.runtime.checkpoint import FORMAT_VERSION
+    out = str(tmp_path / "out")
+    cp = str(tmp_path / "cp.npz")
+    argv = {"-device-opt": ["-n", "3", "-resume", resumed["cp"],
+                            "-device-opt"],
+            "-checkpoint-every": ["-n", "1", "-checkpoint-every", "2",
+                                  "-checkpoint", cp],
+            "-resume": ["-n", "3", "-resume", resumed["cp"]]}[option]
+    main(["-dir", runs["seq"], "-out", out, "-quiet", "-device", "cpu"] +
+         argv)
+    for name in OUTPUTS:
+        assert os.path.exists(os.path.join(out, name)), name
+    rows = len(open(os.path.join(out, "perf_time.csv")).readlines())
+    assert rows == {"-device-opt": 2, "-checkpoint-every": 3,
+                    "-resume": 2}[option]
+    if option == "-checkpoint-every":
+        z = np.load(cp)
+        assert int(z["version"]) == FORMAT_VERSION
+        assert list(z["node_ids"]) == [1, 2]
+        assert int(z["odom_scalars"][1]) == 2
 
 
 @pytest.mark.parametrize("method", ["sgbm", "lk", "cv_bm"])

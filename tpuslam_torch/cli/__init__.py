@@ -1,1 +1,3 @@
-"""Command-line entry points: the batch SLAM app (slam_batch)."""
+"""Command-line entry points: the batch SLAM app (slam_batch), the
+realtime app (slam_realtime) and the pose-graph replay
+(optimize_replay)."""

@@ -8,12 +8,15 @@ optimized-poses CSV, KITTI ground-truth scoring and the occupancy grid
 for the CPU:
 
     python -m tpuslam_torch.cli.slam_batch -dir DIR [-n N] [-out OUT]
-        [-depth bm|sgbm|lk|cv_bm] [-device cuda|cpu]
+        [-depth bm|sgbm|lk|cv_bm] [-device cuda|cpu] [-device-opt]
+        [-checkpoint-every N [-checkpoint PATH] | -resume PATH]
 
 `-depth bm|sgbm|lk|cv_bm` picks the depth engine (runtime/pipeline.py).
-Not ported yet, and refused with NotImplementedError: checkpointing
-(-resume, -checkpoint*) and the device pose-graph backend (-device-opt),
-ROADMAP A5.
+`-device-opt` runs the post-loop pose graph's LM on `device`
+(optim/device.py: the block-Thomas solve, kernel K7 on the card) instead
+of the host twin.  `-checkpoint-every N` saves the Mapper and odometry
+state (runtime/checkpoint.py) every N frames, to `-checkpoint` or
+OUT/checkpoint.npz; `-resume PATH` continues a run from such a file.
 """
 
 from __future__ import annotations
@@ -36,18 +39,6 @@ from ..runtime.pipeline import extract_features
 from ..vo.odometry import Odometry
 
 
-def _refuse(resume_from, checkpoint_every, checkpoint_path,
-            opt_backend) -> None:
-    if resume_from or checkpoint_every or checkpoint_path:
-        raise NotImplementedError(
-            "checkpoints (-resume, -checkpoint-every, -checkpoint) are not "
-            "ported yet (ROADMAP A5: runtime/checkpoint.py)")
-    if opt_backend != "host":
-        raise NotImplementedError(
-            f"pose-graph backend {opt_backend!r} (-device-opt) is not "
-            "ported yet (ROADMAP A5: optim/device.py)")
-
-
 def run(seq_dir: str, cfg: SlamConfig | None = None,
         num_images: int = -1, out_dir: str | None = None,
         image_size: tuple[int, int] | None = None,
@@ -60,12 +51,14 @@ def run(seq_dir: str, cfg: SlamConfig | None = None,
         draws_fn=None) -> dict:
     """Run the batch pipeline over a KITTI-layout sequence directory on
     `device`.  `draws_fn(seed)`, when set, supplies the RANSAC uniforms of
-    every registration (tests pass tpuslam's).
+    every registration (tests pass tpuslam's).  `opt_backend` is the pose
+    graph's ("host", "device" or "device-dense", optim/pose_graph.py);
+    `resume_from` a checkpoint to continue from; with `checkpoint_every`
+    the state is saved every that many frames.
 
     Returns a result dict with raw/optimized poses, metrics, and timing.
     """
     cfg = cfg or SlamConfig()
-    _refuse(resume_from, checkpoint_every, checkpoint_path, opt_backend)
     out_dir = out_dir or seq_dir
     os.makedirs(out_dir, exist_ok=True)
 
@@ -91,11 +84,22 @@ def run(seq_dir: str, cfg: SlamConfig | None = None,
     mapper.draws_fn = draws_fn
     perf = Perf()
 
+    start_frame = 0
     vo_poses = []
+    if resume_from:
+        from ..runtime.checkpoint import load_state
+        load_state(resume_from, mapper, odom)
+        start_frame = mapper._frame_processed
+        # seed VO trajectory from the stored per-frame node poses
+        vo_poses = [mapper.nodes[i].pose
+                    for i in sorted(mapper.nodes)][:start_frame]
+        if not quiet:
+            print(f"resumed from {resume_from} at frame {start_frame}")
+
     n = len(ds) if num_images < 0 else min(num_images + 1, len(ds))
     t_start = time.time()
-    items = ds.prefetch_iter(0, n)
-    for i in range(n):
+    items = ds.prefetch_iter(start_frame, n)
+    for i in range(start_frame, n):
         perf.set_frame(i)
         with perf.span("captureImageLR"):
             item = next(items)
@@ -116,6 +120,11 @@ def run(seq_dir: str, cfg: SlamConfig | None = None,
             if odom.ref_frame is not None:
                 perf.register_memory("Odometry.refFrame",
                                      odom.ref_frame.memory_used())
+        if checkpoint_every and (i + 1) % checkpoint_every == 0:
+            from ..runtime.checkpoint import save_state
+            cp = checkpoint_path or os.path.join(out_dir, "checkpoint.npz")
+            with perf.span("checkpoint"):
+                save_state(cp, mapper, odom)
         if not quiet:
             print(f"frame {i}/{n - 1} inliers: {frame.n_kpts}/"
                   f"{info.num_matches}/{info.num_inliers}"
@@ -131,7 +140,7 @@ def run(seq_dir: str, cfg: SlamConfig | None = None,
     optimized, chi2 = run_optimize_robust(poses, links,
                                           cfg.optimizer.final_iterations,
                                           cfg.optimizer,
-                                          backend=opt_backend)
+                                          backend=opt_backend, device=device)
     save_poses(os.path.join(out_dir, "optimized_poses.csv"), optimized)
 
     if ba:
@@ -210,7 +219,7 @@ def main(argv=None):
                     help="per-component memory accounting (-memory flag, "
                          "Parameters.cpp)")
     ap.add_argument("-resume", dest="resume_from", default=None,
-                    help="checkpoint .npz to resume from (not ported)")
+                    help="checkpoint .npz to resume from")
     ap.add_argument("-checkpoint-every", dest="checkpoint_every",
                     type=int, default=0)
     ap.add_argument("-checkpoint", dest="checkpoint_path", default=None)
@@ -220,7 +229,9 @@ def main(argv=None):
                     help="one global bundle adjustment over all "
                          "keyframes after the pose graph")
     ap.add_argument("-device-opt", dest="device_opt", action="store_true",
-                    help="the pose-graph LM on the device (not ported)")
+                    help="run the pose-graph LM on the device "
+                         "(optim.device.lm_solve_sparse) instead of the "
+                         "host twin")
     ap.add_argument("-depth", dest="depth", default="bm",
                     choices=[m.value for m in DepthMethod],
                     help="depth engine (appSetting.depthMethod twin, "

@@ -13,6 +13,9 @@ KERNELS are the kernels of the main path; TOOLS are launchers that no path
 runs: the K1 phase harness of tpuslam_torch/tools/probe_bm_parts.py, and
 K3's two halves alone (`orb_blur`, `orb_tests`), whose plain twins are the
 two halves of K3's (counted as K3's plain version when it runs them).
+BACKEND are the kernels of the pose graph's device back end
+(optim/device.py), which only `backend="device"` runs: K7, the
+block-Thomas solve (`thomas`).
 
 Counters: every kernel wrapper adds one to LAUNCHES[name] where it launches
 its kernel; every plain PyTorch twin adds one to PLAIN_CALLS[name].  A run
@@ -45,9 +48,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # per-file extra flags: the float kernels must keep the plain version's
 # f32 operation order, so FMA contraction is off for them
-EXTRA_FLAGS = {"gftt": ["-fmad=false"], "orb": ["-fmad=false"]}
+EXTRA_FLAGS = {"gftt": ["-fmad=false"], "orb": ["-fmad=false"],
+               "thomas": ["-fmad=false"]}
 KERNELS = ("stereo_bm", "gftt", "orb", "median", "lr_check", "lm_refine")
 TOOLS = ("stereo_bm_phase", "orb_blur", "orb_tests")
+BACKEND = ("thomas",)
+ALL = KERNELS + TOOLS + BACKEND
 # launcher name -> csrc/<source>.cu, where the two differ
 SOURCES = {"stereo_bm_phase": "stereo_bm", "orb_blur": "orb",
            "orb_tests": "orb"}
@@ -66,10 +72,11 @@ SIGNATURES = {
                         [_P]),
     "orb_blur": ("tpuslam_orb_blur", [_P] * 3 + [_I] * 3 + [_P]),
     "orb_tests": ("tpuslam_orb_tests", [_P] * 5 + [_I] * 4 + [_P]),
+    "thomas": ("tpuslam_thomas", [_P] * 7 + [_I] * 2 + [_P]),
 }
 
-LAUNCHES = {k: 0 for k in KERNELS + TOOLS}
-PLAIN_CALLS = {k: 0 for k in KERNELS + TOOLS}
+LAUNCHES = {k: 0 for k in ALL}
+PLAIN_CALLS = {k: 0 for k in ALL}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -101,7 +108,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_ROOT / h / f"lib{name}.so"
 
 
-def build_all(names=KERNELS + TOOLS) -> dict[str, float]:
+def build_all(names=ALL) -> dict[str, float]:
     """Compile the missing libraries of the launchers `names` in parallel;
     returns the seconds each source's build took (0.0 where its library
     was already built)."""

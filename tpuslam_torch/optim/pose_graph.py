@@ -1,9 +1,7 @@
 """SE3 pose-graph Levenberg-Marquardt: the host backend of
-tpuslam/optim/pose_graph.py (numpy/scipy, f64), copied.
-
-The device backends (backend="device" / "device-dense", tpuslam's
-optim/device.py) are not ported yet (ROADMAP A5) and raise
-NotImplementedError.
+tpuslam/optim/pose_graph.py (numpy/scipy, f64), copied, and the dispatch
+to the device backends (backend="device" / "device-dense",
+optim/device.py, in f32 on `device`) as tpuslam's.
 
 Exact behavioral twin of the reference optimizer
 (the reference's src/slam/src/core/HyperGraph.cpp, GraphEdge.cpp,
@@ -362,19 +360,25 @@ def _build(poses: dict, links: MultiMap,
     return g
 
 
-def _host_only(backend: str) -> None:
-    if backend != "host":
-        raise NotImplementedError(
-            f"pose-graph backend {backend!r} is not ported yet (ROADMAP A5: "
-            "optim/device.py); use backend='host'")
-
-
 def run_optimize(poses: dict, links: MultiMap, num: int,
                  cfg: OptimizerConfig = OptimizerConfig(),
-                 backend: str = "host"):
-    """runOptimize twin (Optimizer.cpp:94-145), the f64 SciPy-LDLT host
-    backend.  Returns (optimized_poses dict of 4x4 f32, final chi2)."""
-    _host_only(backend)
+                 backend: str = "host", device="cuda"):
+    """runOptimize twin (Optimizer.cpp:94-145).
+
+    backend="host": the f64 SciPy-LDLT behavioral twin.
+    backend="device": the LM twin with the structure-aware solver
+    (optim.device.lm_solve_sparse: block-Thomas over the quirk system's
+    block-tridiagonal part, kernel K7 on the card, + Woodbury extras) in
+    f32 on `device`, O(V) memory; the dense lm_solve where fewer than two
+    vertices are free.
+    backend="device-dense": the dense (6V)^2 variant (lm_solve), kept
+    for cross-validation.
+
+    Returns (optimized_poses dict of 4x4 f32, final chi2)."""
+    if backend in ("device", "device-dense"):
+        return _run_optimize_device(poses, links, num, cfg,
+                                    dense=backend == "device-dense",
+                                    device=device)
     g = _build(poses, links, cfg)
     err = g.optimize(num)
     out = {vid: g.estimates[vid].astype(np.float32)
@@ -382,18 +386,59 @@ def run_optimize(poses: dict, links: MultiMap, num: int,
     return out, err
 
 
+def _run_optimize_device(poses: dict, links: MultiMap, num: int,
+                         cfg: OptimizerConfig, dense: bool = False,
+                         device="cuda"):
+    import torch
+    from . import device as dev
+    ids, pose_arr, e_from, e_to, Z, Omega, free_idx = \
+        dev.graph_to_arrays(poses, links)
+    if len(e_from) == 0 or (free_idx >= 0).sum() == 0:
+        return ({vid: np.asarray(poses[vid], np.float32)
+                 for vid in sorted(poses)}, 0.0)
+    n_free = int((free_idx >= 0).sum())
+
+    def on(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    args = (on(pose_arr), on(e_from, torch.long), on(e_to, torch.long),
+            on(Z), on(Omega), on(free_idx, torch.long), n_free)
+    kw = dict(iterations=num, tau=cfg.tau, lower_step=cfg.lower_step,
+              upper_step=cfg.upper_step)
+    if dense or n_free < 2:
+        out_poses, chis = dev.lm_solve(*args, **kw)
+    else:
+        xsel, xp, xq = dev.classify_extra_edges(e_from, e_to, free_idx)
+        out_poses, chis = dev.lm_solve_sparse(
+            *args, on(xsel, torch.long), on(xp, torch.long),
+            on(xq, torch.long), **kw)
+    out_poses = out_poses.cpu().numpy()
+    return ({vid: out_poses[i] for i, vid in enumerate(ids)},
+            float(chis[-1]))
+
+
 def run_optimize_robust(poses: dict, links: MultiMap, num: int,
                         cfg: OptimizerConfig = OptimizerConfig(),
-                        backend: str = "host"):
+                        backend: str = "host", device="cuda"):
     """runOptimizeRobust twin (Optimizer.cpp:147-225): iteratively eject
     the worst non-neighbor (loop-closure) edge with chi2 >= outlier_chi2,
-    rebuilding the connected graph each round, on the host backend."""
-    _host_only(backend)
+    rebuilding the connected graph each round.  The ejection driver is
+    host control flow in every backend.  As in tpuslam, only
+    backend="device" solves the ejection rounds on `device`;
+    "device-dense" solves them on the host and only its final run_optimize
+    on `device`."""
     inliers = links.copy()
     while True:
         poses_out, links_out = get_connected_graph(1, poses, inliers)
         g = _build(poses_out, links_out, cfg)
-        g.optimize(cfg.robust_iterations)
+        if backend == "device":
+            opt, _ = _run_optimize_device(poses_out, links_out,
+                                          cfg.robust_iterations, cfg,
+                                          device=device)
+            for vid, p in opt.items():
+                g.estimates[vid] = np.asarray(p, np.float64)
+        else:
+            g.optimize(cfg.robust_iterations)
         chi2 = g.edge_chi2() if g.edges else np.zeros(0)
 
         worst = -1
@@ -405,7 +450,7 @@ def run_optimize_robust(poses: dict, links: MultiMap, num: int,
 
         if worst < 0:
             return run_optimize(poses_out, links_out, num, cfg,
-                                backend=backend)
+                                backend=backend, device=device)
 
         f_id, t_id = g.edges[worst][0], g.edges[worst][1]
         key = g._edge_keys[worst]

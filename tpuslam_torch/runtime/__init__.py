@@ -1,2 +1,2 @@
-"""Runtime: the fused-VO chunk driver, the per-frame front end and the
-named-span profiler."""
+"""Runtime: the fused-VO chunk driver, the per-frame front end, the
+named-span profiler, the leveled logger and checkpoint/resume."""
