@@ -122,12 +122,29 @@ tpuslam.  Phases, each of which raises on failure:
    version on the first lambda's system of a 1000-vertex cut (1e-4 of
    max|X|) and timed spun and unspun at 1000 and 4541 vertices, the plain
    version once at 1000, and the dense torch.linalg.solve of the same
-   1000-vertex system (the row's `at_cut` and `at_4541`).
+   1000-vertex system (the row's `at_cut` and `at_4541`);
+15. the tool apps, each with every counter reset just before it: (a)
+   cli/kernel_test.py on the golden pair (all_pass, 0 golden mismatches,
+   K1, K5 and K2 once, the report and the disparity equal to the CPU
+   run's); (b) cli/hw_test.py's 9dof, patterns and timing each exit 0,
+   patterns launching K1, K5, K2 and K3's blur (dist/mesh.py's
+   frontend_one) once per pattern, its outputs equal to the CPU's, and
+   the device round trip; (c) cli/stereo_capture.py -source synthetic
+   -frontend over 10 frames (the KITTI layout, the seven dump hooks'
+   files for every frame, keypoints in each, K1, K5 and K3 once per frame
+   and K2 twice); (d) cli/stereo_calib.py over 8 rendered views of
+   tests/test_calib.py's rig on the card and on the CPU (the JAX suite's
+   gates, the card within tests/test_torch_calib.py's tolerances of the
+   CPU, both walls); (e) the main path (run_staged, chunk 20, no Mapper)
+   on tests/test_real_texture.py's 120-frame world textured with the
+   fixture's real frame, rendered on the card (0 lost, t_err < 1.5 %, ATE
+   < 1.5 m, K1-K6 launched).  Each kernel row's `tool_apps` holds its
+   launches in (a), (b), (c) and (e).
 
-With --spread N the main path, the per-frame path, the SGBM main path and
-the realtime app's sgbm and lk runs are run again with RANSAC seeds 1..N
-and the quality of each is printed (the data behind PERF.md's ATE
-bounds).
+With --spread N the main path, the per-frame path, the SGBM main path,
+the realtime app's sgbm and lk runs and phase 15's real-texture main path
+are run again with RANSAC seeds 1..N and the quality of each is printed
+(the data behind PERF.md's ATE bounds).
 
 Prints fps, inliers, ATE and KITTI errors, one JSON line of per-kernel
 numbers (the harness's row with its per-phase numbers under "phases"; the
@@ -543,7 +560,7 @@ def lm_phase(rows, frame1_args, camera, cfg):
 
 def quality(infos, gt):
     est = np.stack([i.pose for i in infos])
-    if len(infos) != N_FRAMES or not np.isfinite(est).all():
+    if len(infos) != len(gt) or not np.isfinite(est).all():
         raise AssertionError("poses missing or not finite")
     from tpuslam_torch.geometry.kitti_metric import \
         calc_kitti_sequence_errors
@@ -1872,6 +1889,355 @@ def backend_scale_phase(rows):
                      bound_by=fb_by, step_us=f_ms * 1e3 / (2 * nf)))
 
 
+# phase 15, the tool apps.  (d) stereo calibration: tests/test_calib.py's
+# rig (K, D, R_LR, T_LR) and its 8 view draws (seed 1), rendered by the
+# numpy renderer; the JAX suite's gates (tests/test_calib.py:71-86) and
+# the card held to the CPU to tests/test_torch_calib.py's tolerances
+CAL_K1 = np.array([[520.0, 0, 321.0], [0, 518.0, 242.0], [0, 0, 1]])
+CAL_K2 = np.array([[515.0, 0, 318.0], [0, 516.0, 239.0], [0, 0, 1]])
+CAL_RVEC_LR, CAL_T_LR = (0.004, -0.02, 0.006), (-0.061, 0.001, 0.002)
+CAL_D1, CAL_D2 = [0.06, -0.04, 0, 0], [0.05, -0.03, 0, 0]
+CAL_VIEWS, CAL_TOL = 8, dict(k_rel=1e-4, d=1e-4, t=1e-5)
+# (c) the capture app over this many frames; (e) the main path on a world
+# textured with the fixture's real frame: tests/test_real_texture.py:32-48
+CAPTURE_FRAMES = 10
+RT_FRAMES, RT_W, RT_H, RT_F, RT_CHUNK = 120, 640, 240, 350.0, 20
+RT_SPEED, RT_YAW, RT_SEED = 1.4, 0.003, 11
+RT_T_ERR_PCT, RT_ATE_M = 1.5, 1.5          # test_real_texture.py:79-84
+# the port's own bound on the real-texture ATE: 1.33x the worst of four
+# RANSAC seeds (0.7764 m, seed 0) in `chip_smoke.py --spread 3` on an
+# NVIDIA H100 80GB HBM3, 700.00 W
+RT_PHOTO_ATE_BOUND_M = 1.03
+
+
+def counted(fn):
+    """fn()'s result and the launches and plain calls it made, every
+    counter reset just before it."""
+    from tpuslam_torch.kernels import _cuda
+    _cuda.reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+
+
+def expect_launches(what, launches, plain, want):
+    """Exactly the launches `want` (kernel -> count, every other 0) and no
+    plain version."""
+    got = {k: v for k, v in launches.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    if any(plain.values()):
+        raise AssertionError(f"{what}: a plain version ran: {plain}")
+
+
+def kernel_test_phase(workdir):
+    """(a) cli/kernel_test.py on the golden pair on the card and on the
+    CPU: all_pass, 0 golden mismatches, K1, K5 and K2 once each, no plain
+    version; the report equal to the CPU's (the float warp's numbers to
+    1e-4) and the disparity bit for bit."""
+    import os
+    from tpuslam_torch.cli import kernel_test
+    card, cpu = {}, {}
+    t0 = time.perf_counter()
+    rep, launches, plain = counted(lambda: kernel_test.run(
+        out_dir=os.path.join(workdir, "kernel_test"), quiet=True,
+        arrays=card))
+    dt = time.perf_counter() - t0
+    expect_launches("kernel_test", launches, plain,
+                    dict(stereo_bm=1, lr_check=1, gftt=1))
+    ref = kernel_test.run(out_dir=os.path.join(workdir, "kernel_test_cpu"),
+                          quiet=True, device="cpu", arrays=cpu)
+    if not rep["all_pass"] or rep["xsobel_vs_golden"]["mismatches"] != 0:
+        raise AssertionError(f"kernel_test on the card: {rep}")
+    for key in ref:
+        if key == "rectify_hw_vs_float":
+            ok = all(abs(rep[key][k] - ref[key][k]) <= 1e-4
+                     for k in ("max_abs", "mean_abs"))
+        else:
+            ok = rep[key] == ref[key]
+        if not ok:
+            raise AssertionError(f"kernel_test {key}: card {rep[key]}, CPU "
+                                 f"{ref[key]}")
+    if not np.array_equal(card["disparity"], cpu["disparity"]):
+        raise AssertionError("kernel_test: the card's disparity differs "
+                             "from the CPU's")
+    log(f"# tool apps (a) kernel_test on the golden pair: {dt:.3f} s on "
+        f"the card; " + "; ".join(f"{k} {v}" for k, v in rep.items()))
+    return launches
+
+
+def hw_test_phase():
+    """(b) cli/hw_test.py: 9dof, patterns and timing each exit 0; the
+    patterns test launches K1, K5, K2 and K3's blur once per pattern and
+    no plain version, and each pattern's outputs, from that same counted
+    run, equal the CPU's bit for bit."""
+    import contextlib
+    import io
+    from tpuslam_torch.cli import hw_test
+    from tpuslam_torch.dist.mesh import frontend_one
+    from tpuslam_torch.io.patterns import generate_pattern
+    rcs, out, outputs = {}, {}, {}
+    runs = {"9dof": lambda: hw_test.main(["9dof"]),
+            "patterns": lambda: hw_test.test_patterns(outputs=outputs),
+            "timing": lambda: hw_test.main(["timing"])}
+    for test, run in runs.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            rc, launches, plain = counted(run)
+            dt = time.perf_counter() - t0
+        rcs[test], out[test] = rc, buf.getvalue().splitlines()
+        log(f"# tool apps (b) hw_test {test}: exit {rc}, {dt:.3f} s; " +
+            " | ".join(out[test]))
+        if test == "patterns":
+            n = len(out[test])
+            expect_launches("hw_test patterns", launches, plain,
+                            dict(stereo_bm=n, lr_check=n, gftt=n,
+                                 orb_blur=n))
+            pattern_launches = launches
+    if any(rcs.values()) or len(out["patterns"]) != 5 or len(outputs) != 5:
+        raise AssertionError(f"hw_test: exit codes {rcs}")
+    for pat, outs in outputs.items():
+        img = generate_pattern(pat, *hw_test.PATTERN_SIZE)
+        ref = [o.numpy() for o in frontend_one(img, img, device="cpu")]
+        if not all(np.array_equal(a, b) for a, b in zip(outs, ref)):
+            raise AssertionError(f"frontend_one on pattern {pat}: the card "
+                                 f"differs from the CPU")
+    rtt = float(out["timing"][0].split()[-2])
+    return pattern_launches, rtt
+
+
+def capture_phase(workdir):
+    """(c) cli/stereo_capture.py -source synthetic -frontend over
+    CAPTURE_FRAMES frames on the card: the KITTI layout, the seven dump
+    hooks' files for every frame, keypoints in each; K1, K5 and K3 once
+    per frame and K2 twice (the front end, and the response for the
+    eigenvalue dump), no plain version."""
+    import os
+    from tpuslam_torch.cli import stereo_capture
+    n = CAPTURE_FRAMES
+    t0 = time.perf_counter()
+    d, launches, plain = counted(lambda: stereo_capture.run(
+        os.path.join(workdir, "capture"), n_frames=n, frontend=True,
+        quiet=True))
+    dt = time.perf_counter() - t0
+    expect_launches("capture", launches, plain,
+                    dict(stereo_bm=n, lr_check=n, orb=n, gftt=2 * n))
+    names = [f"{i:06d}.png" for i in range(n)]
+    for sub in ("image_0", "image_1"):
+        if sorted(os.listdir(os.path.join(d, sub))) != names:
+            raise AssertionError(f"capture: {sub} lacks frames")
+    for f in ("calib.txt", "times.txt", "poses.txt"):
+        if not os.path.exists(os.path.join(d, f)):
+            raise AssertionError(f"capture: no {f}")
+    dumps = set(os.listdir(os.path.join(d, "dumps")))
+    kpts = []
+    for i in range(n):
+        want = {f"{k}_{i:06d}.png" for k in ("rect_l", "rect_r", "kpts",
+                                             "depth", "eig")} | \
+            {f"{k}_{i:06d}.csv" for k in ("kpts2d", "kpts3d", "desc")}
+        if not want <= dumps:
+            raise AssertionError(f"capture: frame {i} lacks "
+                                 f"{sorted(want - dumps)}")
+        with open(os.path.join(d, "dumps", f"kpts2d_{i:06d}.csv")) as f:
+            kpts.append(sum(1 for _ in f))
+    if min(kpts) == 0:
+        raise AssertionError(f"capture: a frame without keypoints: {kpts}")
+    log(f"# tool apps (c) capture: {n} frames 640x480 rendered, written, "
+        f"front end and dumps on the card in {dt:.3f} s; keypoints per "
+        f"frame {kpts}; {len(dumps)} dump files")
+    return launches
+
+
+def calib_phase(workdir):
+    """(d) cli/stereo_calib.py over CAL_VIEWS rendered views of the rig
+    written as PNGs, on the card and on the CPU: the JAX suite's gates
+    and the card held to the CPU."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from tpuslam_torch.calib.calibrate import _rvec
+    from tpuslam_torch.calib.chessboard import _rodrigues, render_chessboard
+    from tpuslam_torch.cli import stereo_calib
+    from tpuslam_torch.io.png import write_png
+    rng = np.random.default_rng(1)
+    r_lr, t_lr = _rodrigues(np.array(CAL_RVEC_LR)), np.array(CAL_T_LR)
+    jobs = []
+    for i in range(CAL_VIEWS):
+        rvec = rng.uniform(-0.35, 0.35, 3)
+        rvec[2] = rng.uniform(-0.25, 0.25)
+        tvec = np.array([rng.uniform(-0.08, -0.02),
+                         rng.uniform(-0.07, -0.02), rng.uniform(0.35, 0.6)])
+        jobs.append(("image_0", i, CAL_K1, rvec, tvec, CAL_D1))
+        jobs.append(("image_1", i, CAL_K2, _rvec(r_lr @ _rodrigues(rvec)),
+                     r_lr @ tvec + t_lr, CAL_D2))
+    views = os.path.join(workdir, "calib")
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(views, sub))
+
+    def render(job):
+        sub, i, K, rvec, tvec, dist = job
+        img, _ = render_chessboard(K, rvec, tvec, dist=dist)
+        write_png(os.path.join(views, sub, f"{i:03d}.png"), img)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(render, jobs))
+    log(f"# tool apps (d) calibration: rendered {2 * CAL_VIEWS} views on "
+        f"the host in {time.perf_counter() - t0:.2f} s")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(workdir, f"calib_{dev}")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        res[dev] = stereo_calib.run(views, out_dir=out, quiet=True,
+                                    device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev]["wall_s"] = time.perf_counter() - t0
+        files = sorted(os.listdir(out))
+        if files != ["extrinsics.yml", "intrinsics.yml", "left_camera.yml",
+                     "right_camera.yml"]:
+            raise AssertionError(f"stereo_calib on {dev}: wrote {files}")
+    c, p = res["cuda"], res["cpu"]
+    b = float(np.linalg.norm(c["T"]))
+    log(f"# tool apps (d) calibration, {c['n_views']} views: card "
+        f"{c['wall_s']:.3f} s, CPU {p['wall_s']:.3f} s; rms {c['rms']:.6f} "
+        f"px (CPU {p['rms']:.6f}); K1 {c['K1'].round(4).tolist()}; D1 "
+        f"{c['D1'].round(6).tolist()}; T {c['T'].round(7).tolist()} m "
+        f"(CPU {p['T'].round(7).tolist()}); |T| {b:.6f} m (true "
+        f"{np.linalg.norm(t_lr):.6f})")
+    if not (c["rms"] < 0.5 and abs(c["K1"][0, 0] - 520.0) / 520.0 < 0.02
+            and abs(c["K2"][1, 1] - 516.0) / 516.0 < 0.02
+            and abs(b - np.linalg.norm(t_lr)) < 0.001 and c["T"][0] < 0):
+        raise AssertionError("calibration on the card misses the JAX "
+                             "suite's gates")
+    tol = CAL_TOL
+    close = all(np.allclose(c[k], p[k], rtol=tol["k_rel"], atol=0)
+                for k in ("K1", "K2")) and \
+        all(np.allclose(c[k], p[k], rtol=0, atol=tol["d"])
+            for k in ("D1", "D2")) and \
+        np.allclose(c["T"], p["T"], rtol=0, atol=tol["t"])
+    if not close or c["n_views"] != p["n_views"]:
+        raise AssertionError(f"calibration: the card differs from the CPU "
+                             f"beyond {tol}")
+    return dict(card_s=c["wall_s"], cpu_s=p["wall_s"], rms=c["rms"],
+                baseline_m=b)
+
+
+def real_texture_run(seed=0):
+    """tests/test_real_texture.py's sequence, textured with the fixture's
+    real frame and rendered on the card, through run_staged with RANSAC
+    seed `seed`, every counter reset just before the run.  Returns
+    (quality, fps, launches, plain calls)."""
+    import os
+    from tpuslam_torch.config import SlamConfig
+    from tpuslam_torch.io.synthetic import make_sequence, sequence_camera
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    photo = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tests", "fixtures", "rect_left.npy"))
+    t0 = time.perf_counter()
+    lefts, rights, stamps, gt = make_sequence(
+        RT_FRAMES, RT_W, RT_H, RT_F, BASELINE, RT_SPEED, RT_YAW, RT_SEED,
+        texture_photo=photo)
+    torch.cuda.synchronize()
+    log(f"# real texture: rendered {RT_FRAMES} photo-textured stereo pairs "
+        f"{RT_W}x{RT_H} on the card in {time.perf_counter() - t0:.2f} s")
+    items = [dict(left=lefts[i], right=rights[i], stamp=stamps[i],
+                  ground_truth=gt[i]) for i in range(RT_FRAMES)]
+    pipe = FastSlamPipeline(sequence_camera(RT_W, RT_H, RT_F, BASELINE),
+                            SlamConfig(), chunk=RT_CHUNK, capacity=CAPACITY,
+                            seed=seed)
+    staged = pipe.stage_chunks(items)
+    t0 = time.perf_counter()
+    infos, launches, plain = counted(lambda: pipe.run_staged(staged, items))
+    dt = time.perf_counter() - t0
+    q = quality(infos, gt)
+    q["drift"] = drift_profile(infos, gt)
+    return q, RT_FRAMES / dt, launches, plain
+
+
+def _angle_deg(r):
+    return math.degrees(math.acos(min(1.0, max(-1.0,
+                                               (np.trace(r) - 1) / 2))))
+
+
+def drift_profile(infos, gt, every=20, onset_m=0.1):
+    """Where a run's error grows: the position error (m) and the heading
+    error (deg) at every `every`-th frame and the last, the first frame
+    whose position error passes `onset_m`, and the frame whose own step
+    has the largest rotation error (deg)."""
+    est = np.stack([i.pose for i in infos])
+    pos = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
+    head = [_angle_deg(g[:3, :3].T @ e[:3, :3]) for g, e in zip(gt, est)]
+    step = [_angle_deg((gt[i - 1, :3, :3].T @ gt[i, :3, :3]).T @
+                       (est[i - 1, :3, :3].T @ est[i, :3, :3]))
+            for i in range(1, len(est))]
+    marks = list(range(every, len(est), every)) + [len(est) - 1]
+    over = np.nonzero(pos > onset_m)[0]
+    worst = int(np.argmax(step))
+    return (f"position error m / heading error deg at frames " +
+            ", ".join(f"{i}: {pos[i]:.4f} / {head[i]:.4f}" for i in marks) +
+            f"; first frame past {onset_m} m: "
+            f"{int(over[0]) if len(over) else None}; largest step rotation "
+            f"error {step[worst]:.5f} deg at frame {worst + 1}")
+
+
+def real_texture_spread(n):
+    """The real-texture main path with RANSAC seeds 1..n (quality and
+    where the error grows)."""
+    ates = []
+    for seed in range(1, n + 1):
+        q, fps, _, _ = real_texture_run(seed)
+        ates.append(q["ate"])
+        log(f"# real texture spread seed {seed}: {fps:.3f} fps; {fmt(q)}")
+        log(f"# real texture spread seed {seed} drift: {q['drift']}")
+    log(f"# real texture spread over {n} seeds: ATE {min(ates):.4f}-"
+        f"{max(ates):.4f} m")
+
+
+def real_texture_phase():
+    """(e) the main path on a world textured with the fixture's real
+    frame (tests/test_real_texture.py's configuration), rendered on the
+    card: run_staged, every counter reset just before it; 0 lost, finite
+    t_err < 1.5 %, ATE < 1.5 m (the JAX suite's gates) and ATE within
+    the port's own bound RT_PHOTO_ATE_BOUND_M, K1-K6 launched, no plain
+    version."""
+    from tpuslam_torch.kernels import _cuda
+    q, fps, launches, plain = real_texture_run()
+    log(f"# tool apps (e) real texture: {RT_FRAMES} frames at {fps:.3f} fps "
+        f"(one run, counters reset before it); {fmt(q)} (bound "
+        f"{RT_PHOTO_ATE_BOUND_M} m); launches {launches}")
+    log(f"# tool apps (e) real texture drift: {q['drift']}")
+    missing = [k for k in _cuda.KERNELS if launches[k] == 0]
+    if missing or any(plain.values()):
+        raise AssertionError(f"real texture: kernels not launched "
+                             f"{missing} or plain calls {plain}")
+    if q["lost"] != 0 or not math.isfinite(q["t_err"]) or \
+            not q["t_err"] < RT_T_ERR_PCT or not q["ate"] < RT_ATE_M or \
+            not q["ate"] <= RT_PHOTO_ATE_BOUND_M:
+        raise AssertionError(f"real texture: gates failed: {fmt(q)} "
+                             f"(bound {RT_PHOTO_ATE_BOUND_M} m)")
+    return launches, fps, q
+
+
+def tool_apps_phase(workdir, rows):
+    """Phase 15, the tool apps on the card: (a)-(e).  Adds each kernel's
+    launches in each of them to its row (`tool_apps`)."""
+    t0 = time.perf_counter()
+    counts = dict(kernel_test=kernel_test_phase(workdir))
+    counts["hw_test_patterns"], rtt = hw_test_phase()
+    counts["capture"] = capture_phase(workdir)
+    cal = calib_phase(workdir)
+    counts["real_texture"], rt_fps, rt_q = real_texture_phase()
+    from tpuslam_torch.kernels import _cuda
+    for k in _cuda.KERNELS + ("orb_blur",):
+        rows[k]["tool_apps"] = {what: c[k] for what, c in counts.items()}
+    log(f"# tool apps: phase 15 took {time.perf_counter() - t0:.2f} s")
+    return dict(round_trip_ms=rtt, calib=cal, real_texture_fps=rt_fps,
+                real_texture_ate_m=rt_q["ate"],
+                real_texture_t_err_pct=rt_q["t_err"])
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--spread", type=int, default=0)
@@ -1931,6 +2297,7 @@ def main():
         rt = realtime_phase(seq, workdir)
         backend_phase(seq, workdir, pf_res, rows)
         backend_scale_phase(rows)
+        tools = tool_apps_phase(workdir, rows)
         log(f"# fps: default configuration + Mapper {fps:.3f}, the same "
             f"from PNG files (run_ingest) {ingest_fps:.3f}, slice "
             f"{slice_fps:.3f}, per-frame batch path {pf_fps:.3f}, SGBM main "
@@ -1940,9 +2307,11 @@ def main():
         log("# per-frame path launches per kernel: " + json.dumps(
             {k: pf_launches[k] for k in _cuda.KERNELS}))
         log("# depth engines: " + json.dumps(depth))
+        log("# tool apps: " + json.dumps(tools))
         if args.spread:
             pf_spread_phase(seq, workdir, args.spread)
             realtime_spread_phase(seq, workdir, args.spread)
+            real_texture_spread(args.spread)
     if args.spread:
         spread_phase(camera, cfg, staged, items, gt, args.spread)
         spread_phase(camera, SlamConfig(depth_method=DepthMethod.SGBM),
@@ -1964,7 +2333,8 @@ def main():
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
         "library_ms", "via", "tool_launches", "phases", "wide",
-        "per_frame", "per_frame_loop_closure", "launches_scale",
+        "per_frame", "per_frame_loop_closure", "tool_apps",
+        "launches_scale",
         "n", "m", "rel_err", "bit_equal", "step_us", "at_cut", "at_4541")
         if k in rows[n]}
         for n in _cuda.ALL]

@@ -26,7 +26,9 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["config.py", "geometry/transform.py", "geometry/camera.py",
           "geometry/kitti_metric.py", "vo/frame.py", "mapping/graph.py",
-          "runtime/perf.py", "mapping3d/octree_bt.py", "runtime/logger.py"]
+          "runtime/perf.py", "mapping3d/octree_bt.py", "runtime/logger.py",
+          "io/patterns.py", "io/imu.py", "runtime/frame_meas.py",
+          "calib/yaml_io.py"]
 # numpy functions and classes copied into a module of the port that also
 # holds torch code: (module path, name)
 COPIED_DEFS = [("kernels/gftt.py", "select_from_candidates"),
@@ -48,7 +50,33 @@ COPIED_DEFS = [("kernels/gftt.py", "select_from_candidates"),
                ("kernels/rectify.py", "rect_map_fixed"),
                ("kernels/rectify.py", "rect_map_float"),
                ("optim/device.py", "graph_to_arrays"),
-               ("optim/device.py", "classify_extra_edges")]
+               ("optim/device.py", "classify_extra_edges"),
+               ("runtime/dumps.py", "save_rect_image_pair"),
+               ("runtime/dumps.py", "save_depth_image"),
+               ("runtime/dumps.py", "save_eigenvalue"),
+               ("runtime/dumps.py", "save_kpts2d"),
+               ("runtime/dumps.py", "save_kpts3d"),
+               ("runtime/dumps.py", "save_descriptor"),
+               ("runtime/dumps.py", "save_rect_image_kpts"),
+               ("runtime/dumps.py", "dump_frame"),
+               ("calib/chessboard.py", "_nms_candidates"),
+               ("calib/chessboard.py", "_subpix"),
+               ("calib/chessboard.py", "_homography"),
+               ("calib/chessboard.py", "_apply_h"),
+               ("calib/chessboard.py", "render_chessboard"),
+               ("calib/chessboard.py", "_rodrigues"),
+               ("calib/chessboard.py", "project_points"),
+               ("calib/chessboard.py", "_distort_inverse_grid"),
+               ("calib/calibrate.py", "board_points"),
+               ("calib/calibrate.py", "_v_ij"),
+               ("calib/calibrate.py", "init_intrinsics"),
+               ("calib/calibrate.py", "_fallback_K"),
+               ("calib/calibrate.py", "init_extrinsics"),
+               ("calib/calibrate.py", "_rvec"),
+               ("calib/calibrate.py", "_lm"),
+               ("calib/calibrate.py", "stereo_rectify"),
+               ("cli/stereo_calib.py", "_pairs"),
+               ("cli/stereo_capture.py", "_default_camera")]
 KERNELS = ["stereo_bm", "gftt", "orb", "median", "lr_check", "lm_refine"]
 BACKEND = ["thomas"]
 
@@ -201,7 +229,8 @@ def test_frame_and_odominfo_fields():
 def test_import_leaves_jax_out():
     """Importing the port, its main path, its batch and realtime apps, its
     depth engines, its pose-graph device back end, checkpoints and replay
-    included, loads no JAX, no tpuslam and no Pillow."""
+    included, and its tool apps (kernel test, self-tests, calibration,
+    capture), loads no JAX, no tpuslam and no Pillow."""
     code = ("import sys; import tpuslam_torch; "
             "import tpuslam_torch.runtime.fast_pipeline, "
             "tpuslam_torch.io.synthetic, tpuslam_torch.convert, "
@@ -214,7 +243,12 @@ def test_import_leaves_jax_out():
             "tpuslam_torch.kernels.lk_stereo, tpuslam_torch.kernels.rectify, "
             "tpuslam_torch.runtime.telemetry, tpuslam_torch.optim.device, "
             "tpuslam_torch.runtime.checkpoint, tpuslam_torch.runtime.logger, "
-            "tpuslam_torch.cli.optimize_replay; "
+            "tpuslam_torch.cli.optimize_replay, tpuslam_torch.calib, "
+            "tpuslam_torch.cli.kernel_test, tpuslam_torch.cli.hw_test, "
+            "tpuslam_torch.cli.stereo_calib, "
+            "tpuslam_torch.cli.stereo_capture, tpuslam_torch.dist, "
+            "tpuslam_torch.runtime.dumps, tpuslam_torch.runtime.frame_meas, "
+            "tpuslam_torch.io.imu, tpuslam_torch.io.patterns; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'tpuslam', 'PIL')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -375,6 +409,12 @@ def _entry_points():
     from tpuslam_torch.optim import run_optimize, run_optimize_robust
     from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
     from tpuslam_torch.vo import fused, registration
+    from tpuslam_torch import calib
+    from tpuslam_torch.calib import chessboard
+    from tpuslam_torch.cli import hw_test, kernel_test, stereo_calib
+    from tpuslam_torch.cli import stereo_capture
+    from tpuslam_torch.dist import mesh
+    from tpuslam_torch.io.synthetic import photo_pyramid
     return {
         "FastSlamPipeline": FastSlamPipeline.__init__,
         "make_sequence": make_sequence,
@@ -406,6 +446,16 @@ def _entry_points():
         "insert_depth_frame": occupancy.insert_depth_frame,
         "run_optimize": run_optimize,
         "run_optimize_robust": run_optimize_robust,
+        "kernel_test.run": kernel_test.run,
+        "hw_test.test_patterns": hw_test.test_patterns,
+        "hw_test.test_timing": hw_test.test_timing,
+        "frontend_one": mesh.frontend_one,
+        "find_chessboard": chessboard.find_chessboard,
+        "calibrate_camera": calib.calibrate_camera,
+        "stereo_calibrate": calib.stereo_calibrate,
+        "stereo_calib.run": stereo_calib.run,
+        "stereo_capture.run": stereo_capture.run,
+        "photo_pyramid": photo_pyramid,
     }
 
 
@@ -425,7 +475,13 @@ def _entry_points():
                                   "StereoRectifier.from_reference_calib",
                                   "build_occupancy_grid_map",
                                   "insert_depth_frame", "run_optimize",
-                                  "run_optimize_robust"])
+                                  "run_optimize_robust", "kernel_test.run",
+                                  "hw_test.test_patterns",
+                                  "hw_test.test_timing",
+                                  "frontend_one", "find_chessboard",
+                                  "calibrate_camera", "stereo_calibrate",
+                                  "stereo_calib.run", "stereo_capture.run",
+                                  "photo_pyramid"])
 def test_entry_point_defaults_to_the_card(name):
     """Every entry point runs on the card unless the caller asks for the
     CPU (read from the signature: nothing is built here)."""

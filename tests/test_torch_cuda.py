@@ -23,7 +23,10 @@ outside K2's block size runs the plain version on the card and equals the
 CPU; run_ingest on the card equals run_staged on the same written frames.
 The depth engines outside the kernels: SGBM on the card equals the CPU
 bit for bit, LK agrees with it, the integer rectification warp equals
-it, and the realtime app on the card gives the batch app's poses.
+it, and the realtime app on the card gives the batch app's poses.  The
+tool apps: frontend_one and the kernel A/B harness on the card equal the
+CPU and count their launches; the photo-textured renderer agrees with
+the CPU to a grey level.
 """
 
 import os
@@ -820,3 +823,112 @@ def test_robust_device_backend_on_the_card_equals_cpu():
         np.testing.assert_allclose(card[k][:3, 3], cpu[k][:3, 3], rtol=0,
                                    atol=5e-2)
     assert abs(card_chi2 - cpu_chi2) <= 0.1 * cpu_chi2 + 1e-9
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.parametrize("case", ["fixture", "pattern1", "pattern3",
+                                  "pattern5"])
+def test_frontend_one_card_equals_cpu(case):
+    """dist/mesh.py's frontend_one on the card: K1, K5, K2 and K3's blur
+    launcher once each and no plain version; its disparity, response and
+    blur equal the CPU's bit for bit (the flat frame-increment pattern
+    holds only invalid rows)."""
+    _need_card()
+    from tpuslam_torch.dist.mesh import frontend_one
+    from tpuslam_torch.io.patterns import generate_pattern
+    from tpuslam_torch.kernels import _cuda
+    if case == "fixture":
+        left = np.load(os.path.join(FIXTURES, "rect_left.npy"))
+        right = np.load(os.path.join(FIXTURES, "rect_right.npy"))
+    else:
+        left = right = generate_pattern(int(case[-1]), 480, 640, 7)
+    _cuda.reset_counters()
+    card = frontend_one(left, right)
+    torch.cuda.synchronize()
+    assert {k: _cuda.LAUNCHES[k] for k in ("stereo_bm", "lr_check", "gftt",
+                                           "orb_blur")} == \
+        dict(stereo_bm=1, lr_check=1, gftt=1, orb_blur=1)
+    assert sum(_cuda.LAUNCHES.values()) == 4
+    assert sum(_cuda.PLAIN_CALLS.values()) == 0
+    cpu = frontend_one(left, right, device="cpu")
+    for a, b in zip(card, cpu):
+        assert a.is_cuda and a.dtype == b.dtype
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("block", [3, 5])
+def test_response_and_blur_dispatchers_on_the_card(pair, block):
+    """gftt_response_auto and orb_blur_auto on a CUDA tensor launch K2 and
+    K3's blur and equal the CPU's plain versions bit for bit; at a block
+    size K2 refuses (5) the response raises instead of running the plain
+    version on the card."""
+    from tpuslam_torch.kernels import _cuda, gftt as G, orb as O
+    img = pair[0][:1].contiguous()
+    _cuda.reset_counters()
+    if G.k2_refusal(block) is not None:
+        with pytest.raises(ValueError, match="block_size 5"):
+            G.gftt_response_auto(img, block)
+        assert not any(_cuda.LAUNCHES.values())
+        assert not any(_cuda.PLAIN_CALLS.values())
+        return
+    eig, blur = G.gftt_response_auto(img, block), O.orb_blur_auto(img)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["gftt"] == 1 and _cuda.LAUNCHES["orb_blur"] == 1
+    assert not any(_cuda.PLAIN_CALLS.values())
+    assert torch.equal(eig.cpu(), G.gftt_response(img.cpu(), block))
+    assert torch.equal(blur.cpu(), O.orb_blur(img.cpu()))
+
+
+def test_kernel_test_card_equals_cpu(tmp_path):
+    """cli/kernel_test.py on the card: K1, K5 and K2 once each, no plain
+    version; the report equal to the CPU's (the float warp's numbers to
+    1e-4), every stage's output equal bit for bit (the float warp to
+    1e-4)."""
+    _need_card()
+    from tpuslam_torch.cli import kernel_test
+    from tpuslam_torch.kernels import _cuda
+    _cuda.reset_counters()
+    card_arrays, cpu_arrays = {}, {}
+    card = kernel_test.run(out_dir=str(tmp_path / "card"), quiet=True,
+                           arrays=card_arrays)
+    launches = dict(_cuda.LAUNCHES)
+    assert launches["stereo_bm"] == launches["lr_check"] == \
+        launches["gftt"] == 1
+    assert sum(launches.values()) == 3
+    assert sum(_cuda.PLAIN_CALLS.values()) == 0
+    cpu = kernel_test.run(out_dir=str(tmp_path / "cpu"), quiet=True,
+                          device="cpu", arrays=cpu_arrays)
+    assert card["all_pass"] and card["xsobel_vs_golden"]["mismatches"] == 0
+    for key in cpu:
+        if key == "rectify_hw_vs_float":
+            for k in ("max_abs", "mean_abs"):
+                assert card[key][k] == pytest.approx(cpu[key][k], abs=1e-4)
+        else:
+            assert card[key] == cpu[key], key
+    for k, v in cpu_arrays.items():
+        if k == "rect_float":
+            np.testing.assert_allclose(card_arrays[k], v, rtol=0, atol=1e-4)
+        else:
+            np.testing.assert_array_equal(card_arrays[k], v)
+
+
+def test_photo_render_card_against_cpu():
+    """The photo-textured renderer on the card against the CPU: within one
+    grey level on at most 1e-3 of the pixels (exp, sqrt and log2 round
+    differently on the two), at the real-texture sequence's 640x240."""
+    _need_card()
+    from tpuslam_torch.io.synthetic import BoxWorld, forward_trajectory
+    photo = np.load(os.path.join(FIXTURES, "rect_left.npy"))
+    poses = forward_trajectory(120, 1.4, 0.003)
+    world = BoxWorld(poses, seed=11, photo=photo)
+    for p in (poses[0], poses[60], poses[119]):
+        card = world.render(p, 350.0, 319.5, 119.5, 240, 640)
+        cpu = world.render(p, 350.0, 319.5, 119.5, 240, 640, device="cpu")
+        assert card.is_cuda
+        d = np.abs(card.cpu().numpy().astype(np.int32) -
+                   cpu.numpy().astype(np.int32))
+        assert d.max() <= 1 and (d > 0).mean() <= 1e-3

@@ -10,8 +10,10 @@ Layer map:
   config      — the reference constants (copy of tpuslam.config)
   geometry    — SE3 transforms, stereo camera model, KITTI metric (copies)
   io          — the synthetic box-world sequence, rendered in torch (in
-                memory or written as a KITTI-layout directory), the
-                KITTI-layout dataset reader and a grayscale PNG codec
+                memory or written as a KITTI-layout directory; procedural
+                or photo texture), the KITTI-layout dataset reader, a
+                grayscale PNG codec, test patterns and the synthetic IMU
+                (copies)
   kernels     — StereoBM and its LR check, GFTT, ORB, matching,
                 EPnP-RANSAC and the LM refine; each hand-written CUDA
                 kernel sits beside its plain PyTorch version
@@ -23,8 +25,14 @@ Layer map:
   mapping3d   — the occupancy grid and its OctoMap .bt export
   optim       — the pose graph (host f64) and bundle adjustment
   runtime     — the chunk driver (FastSlamPipeline), the per-frame front
-                end and the named-span profiler
-  cli         — the batch SLAM app (slam_batch)
+                end, the named-span profiler, the stage dumps and the
+                frame-timing twin
+  calib       — chessboard detection and stereo calibration (LM on the
+                device), YAML output
+  dist        — the per-frame device front end (frontend_one)
+  cli         — the batch and realtime SLAM apps, the pose-graph replay
+                and the tool apps (kernel_test, hw_test, stereo_calib,
+                stereo_capture)
   csrc        — the CUDA C++ sources, built at first use by nvcc
 """
 

@@ -11,8 +11,12 @@ world hit point and 2x2 supersampled.
 `make_sequence` returns the frames in memory, with the timestamps and
 ground truth the KITTI-layout files would have given (the same text round
 trip); `write_sequence` writes those files, as tpuslam's make_sequence
-does (images as PNGs through io/png.py).  The procedural texture only: the
-photo-texture option is not ported.
+does (images as PNGs through io/png.py).  Either may texture the world
+with a real grayscale photograph instead of the procedural noise
+(`texture_photo`: `photo_pyramid`, `_sample_photo`, `_texture_photo`),
+mirror-tiled and mip-mapped, with the blob landmarks laid over it, as
+tpuslam's photo mode does: real image statistics in the end-to-end
+evidence chain.
 
 `pnp_scene` makes the known-pose refinement inputs that the card-only
 tests and chip_smoke.py hold the LM-refine kernel to.
@@ -117,10 +121,79 @@ def _texture(a, b, footprint, salt):
     return out
 
 
-def render_box(cam_to_world, box, f, cx, cy, h, w, ss, seed, device):
+def photo_pyramid(photo, levels: int = 6, device="cuda"):
+    """Mip pyramid of a real grayscale photograph for _texture_photo, on
+    `device` (the card unless the caller asks for the CPU): tuple of f32
+    [0,1] tensors, each level 2x2-mean downsampled (in numpy, as
+    tpuslam's)."""
+    img = np.asarray(photo, np.float32) / 255.0
+    pyr = [img]
+    for _ in range(levels - 1):
+        im = pyr[-1]
+        if min(im.shape) < 4:
+            break
+        h2, w2 = im.shape[0] // 2 * 2, im.shape[1] // 2 * 2
+        pyr.append(im[:h2, :w2].reshape(h2 // 2, 2, w2 // 2, 2)
+                   .mean(axis=(1, 3)))
+    return tuple(torch.as_tensor(p, device=device) for p in pyr)
+
+
+def _mirror(u, n: int):
+    """Mirror-tiled coordinate of u over [0, n-1]: jnp.mod's floor
+    modulo (fmod, then the period added to a negative remainder)."""
+    period = 2.0 * (n - 1)
+    m = torch.fmod(u, period)
+    m = torch.where(m < 0, m + period, m)
+    return torch.where(m <= n - 1, m, period - m)
+
+
+def _sample_photo(level_img, ua, ub):
+    """Mirror-tiled bilinear sample of one pyramid level at pixel coords
+    (ua, ub)."""
+    H, W = level_img.shape
+    x = _mirror(ua, W)
+    y = _mirror(ub, H)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0 = torch.clamp(x0.int(), 0, W - 1)
+    y0 = torch.clamp(y0.int(), 0, H - 1)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    flat = level_img.reshape(-1)
+
+    def at(yy, xx):
+        return flat[(yy * W + xx).long()]
+
+    return (at(y0, x0) * (1 - fx) * (1 - fy) +
+            at(y0, x1) * fx * (1 - fy) +
+            at(y1, x0) * (1 - fx) * fy +
+            at(y1, x1) * fx * fy)
+
+
+def _texture_photo(a, b, footprint, pyr, px_per_m: float = 96.0):
+    """Real-photo plane texture: mirror-tiled trilinear (bilinear +
+    mip-level tent blend) lookup, level chosen by the pixel footprint so
+    distant surfaces sample pre-averaged texture instead of aliasing."""
+    px = footprint * px_per_m
+    lvl = torch.clamp(torch.log2(torch.clamp(px, min=1.0)), 0.0,
+                      float(len(pyr) - 1))
+    out = torch.zeros_like(a)
+    for li, level in enumerate(pyr):
+        w_l = torch.clamp(1.0 - torch.abs(lvl - li), 0.0, 1.0)
+        scale = px_per_m / (2.0 ** li)
+        out = out + w_l * _sample_photo(level, a * scale, b * scale)
+    return out
+
+
+def render_box(cam_to_world, box, f, cx, cy, h, w, ss, seed, device,
+               photo_pyr=None):
     """Ray-trace the inside of an axis-aligned textured box -> (h, w)
     uint8.  box = [x_lo, x_hi, y_lo, y_hi, z_lo, z_hi] in the optical
-    frame (x right, y down, z forward)."""
+    frame (x right, y down, z forward).  `photo_pyr` (photo_pyramid's
+    levels on `device`) textures the faces with a photograph instead of
+    the procedural noise."""
     f32 = dict(dtype=torch.float32, device=device)
     c2w = torch.as_tensor(np.asarray(cam_to_world, np.float32), **f32)
     box = torch.as_tensor(np.asarray(box, np.float32), **f32)
@@ -149,7 +222,15 @@ def render_box(cam_to_world, box, f, cx, cy, h, w, ss, seed, device):
     a = torch.where(face < 2, p[..., 1], p[..., 0])
     b = torch.where(face < 4, p[..., 2], p[..., 1])
     footprint = t_hit / (f * ss)
-    tex = _texture(a, b, footprint, seed)
+    if photo_pyr is None:
+        tex = _texture(a, b, footprint, seed)
+    else:
+        tex = _texture_photo(a, b, footprint, photo_pyr)
+        # globally unique blob landmarks over the mirror-tiled photo
+        # (an exactly repeating wall aliases descriptor matching)
+        for k, s_ in enumerate(_SPOT_SCALES):
+            cov, inten = _spots(a, b, s_, seed * 4241 + 977 * k, footprint)
+            tex = tex * (1.0 - cov) + inten * cov
     contrast = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.12, 0.12], **f32)[face]
     tex = 0.5 + (tex - 0.5) * contrast
     gain = torch.tensor([0.95, 1.05, 0.85, 1.0, 0.9, 1.1], **f32)[face]
@@ -163,7 +244,7 @@ class BoxWorld:
 
     def __init__(self, poses, seed: int = 0, half_width: float = 11.0,
                  ground: float = 1.6, ceiling: float = -3.2,
-                 z_margin: float = 45.0):
+                 z_margin: float = 45.0, photo=None):
         poses = [np.asarray(p, np.float64) for p in poses]
         xs = np.array([p[0, 3] for p in poses])
         ys = np.array([p[1, 3] for p in poses])
@@ -174,13 +255,28 @@ class BoxWorld:
             zs.min() - z_margin, zs.max() + z_margin,
         ], np.float32)
         self.seed = seed
+        # photo: real grayscale image to texture every face with
+        # (mirror-tiled, mip-mapped) instead of the procedural noise; its
+        # pyramid is made on each device at that device's first render
+        self.photo = None if photo is None else np.asarray(photo)
+        self._pyramids = {}
+
+    def photo_pyr(self, device):
+        """The photo's pyramid on `device` (None without a photo)."""
+        if self.photo is None:
+            return None
+        key = str(torch.device(device))
+        if key not in self._pyramids:
+            self._pyramids[key] = photo_pyramid(self.photo, device=device)
+        return self._pyramids[key]
 
     def render(self, cam_to_world, f, cx, cy, h, w, ss: int = 2,
                device="cuda") -> torch.Tensor:
         """One (h, w) uint8 view from `cam_to_world`, rendered on `device`
         (the card unless the caller asks for the CPU)."""
         return render_box(cam_to_world, self.box, f, cx, cy, int(h), int(w),
-                          int(ss), int(self.seed) & 0x7FFFFFFF, device)
+                          int(ss), int(self.seed) & 0x7FFFFFFF, device,
+                          self.photo_pyr(device))
 
 
 def forward_trajectory(n_frames: int, speed: float, yaw_rate: float):
@@ -233,10 +329,13 @@ def out_and_back_trajectory(n_forward: int, speed: float = 0.5):
 def make_sequence(n_frames: int = 20, width: int = 640, height: int = 480,
                   f: float = 500.0, baseline: float = 0.54,
                   speed: float = 0.5, yaw_rate: float = 0.004,
-                  seed: int = 0, device="cuda", poses=None):
+                  seed: int = 0, device="cuda", poses=None,
+                  texture_photo=None):
     """Render a synthetic stereo sequence on `device` (the card unless the
     caller asks for the CPU).  `poses` (4x4 cam-to-world, optical frame)
     replaces the forward-with-yaw trajectory; n_frames is then theirs.
+    `texture_photo`: a real grayscale image (H, W) used as the world
+    texture (mirror-tiled, mip-mapped) instead of the procedural noise.
 
     Returns (left (N, H, W) uint8, right (N, H, W) uint8, stamps list of
     float, gt_poses (N, 4, 4) float32 robot-frame numpy array).  Frames,
@@ -249,7 +348,7 @@ def make_sequence(n_frames: int = 20, width: int = 640, height: int = 480,
     else:
         poses = [np.asarray(p, np.float64) for p in poses]
         n_frames = len(poses)
-    world = BoxWorld(poses, seed=seed)
+    world = BoxWorld(poses, seed=seed, photo=texture_photo)
     right_offset = np.eye(4)
     right_offset[0, 3] = baseline
     left = torch.stack([world.render(p, f, cx, cy, height, width,
@@ -265,19 +364,21 @@ def write_sequence(out_dir: str, n_frames: int = 20, width: int = 640,
                    height: int = 480, f: float = 500.0,
                    baseline: float = 0.54, speed: float = 0.5,
                    yaw_rate: float = 0.004, seed: int = 0, poses=None,
-                   device="cuda") -> str:
+                   device="cuda", texture_photo=None) -> str:
     """Render a sequence on `device` (the card unless the caller asks for
     the CPU) and write it as a KITTI-layout directory, as
     tpuslam.io.synthetic.make_sequence(out_dir, ...) does: image_0/ and
     image_1/ PNGs, calib.txt, times.txt and poses.txt (cam0-to-world 3x4
-    rows) in the same text formats.  Returns out_dir."""
+    rows) in the same text formats; `texture_photo` as make_sequence's.
+    Returns out_dir."""
     from .png import write_png
     if poses is None:
         poses = forward_trajectory(n_frames, speed, yaw_rate)
     poses = [np.asarray(p, np.float64) for p in poses]
     left, right, _, _ = make_sequence(width=width, height=height, f=f,
                                       baseline=baseline, seed=seed,
-                                      device=device, poses=poses)
+                                      device=device, poses=poses,
+                                      texture_photo=texture_photo)
     for sub, imgs in (("image_0", left), ("image_1", right)):
         os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
         for i, img in enumerate(imgs.cpu().numpy()):

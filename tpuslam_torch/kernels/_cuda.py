@@ -9,10 +9,13 @@ source and flags, so a changed source rebuilds and an unchanged one is
 reused.  A launcher is named like its kernel; SOURCES maps the launchers
 that live in another kernel's file to that file.
 
-KERNELS are the kernels of the main path; TOOLS are launchers that no path
-runs: the K1 phase harness of tpuslam_torch/tools/probe_bm_parts.py, and
-K3's two halves alone (`orb_blur`, `orb_tests`), whose plain twins are the
-two halves of K3's (counted as K3's plain version when it runs them).
+KERNELS are the kernels of the main path; TOOLS are launchers that the
+main path does not run: the K1 phase harness of
+tpuslam_torch/tools/probe_bm_parts.py, and K3's two halves alone
+(`orb_blur`, `orb_tests`), whose plain twins are the two halves of K3's
+(counted as K3's plain version when it runs them).  The blur alone runs
+on the tool apps' path: dist/mesh.py's frontend_one, which the hardware
+self-test drives.
 BACKEND are the kernels of the pose graph's device back end
 (optim/device.py), which only `backend="device"` runs: K7, the
 block-Thomas solve (`thomas`).

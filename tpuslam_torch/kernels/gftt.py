@@ -114,6 +114,20 @@ def k2_refusal(block_size: int) -> str | None:
     return None
 
 
+def gftt_response_auto(img: torch.Tensor, block_size: int = 3):
+    """GFTT response of (B, H, W) uint8: kernel K2's first output on a
+    CUDA tensor (bit-equal to gftt_response), the plain version (counted)
+    on a CPU tensor.  A CUDA tensor at a block size K2 refuses raises
+    ValueError: no plain version runs on the card here."""
+    if img.is_cuda:
+        refusal = k2_refusal(block_size)
+        if refusal is not None:
+            raise ValueError(f"gftt_response_auto on the card: {refusal}")
+        return gftt_response_dil_cuda(img)[0]
+    _cuda.PLAIN_CALLS["gftt"] += 1
+    return gftt_response(img, block_size)
+
+
 def gftt_kernel_attrs() -> dict:
     """Registers, shared bytes and local bytes per thread of K2's kernel
     on the current card, and its strips' output rows and columns and its

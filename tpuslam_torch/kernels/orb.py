@@ -172,13 +172,23 @@ def orb_descriptors_cuda(image: torch.Tensor, kpts_xy: torch.Tensor,
 
 def orb_blur_cuda(image: torch.Tensor) -> torch.Tensor:
     """K3's blur alone (the `orb_blur` tool launcher): same contract as
-    orb_blur on a (B, H, W) uint8 image.  No path runs it."""
+    orb_blur on a (B, H, W) uint8 image.  The main path does not run it;
+    dist/mesh.py's frontend_one does, through orb_blur_auto."""
     B, H, W = _check_image(image)
     out = torch.empty_like(image)
     with torch.cuda.device(image.device):
         _cuda.launch("orb_blur", image, _gauss_taps(image.device), out, B, H,
                      W)
     return out
+
+
+def orb_blur_auto(image: torch.Tensor) -> torch.Tensor:
+    """orb_blur of a (B, H, W) uint8 image: K3's blur launcher on a CUDA
+    tensor (bit-equal), the plain version (counted) on a CPU tensor."""
+    if image.is_cuda:
+        return orb_blur_cuda(image)
+    _cuda.PLAIN_CALLS["orb_blur"] += 1
+    return orb_blur(image)
 
 
 def orb_tests_cuda(blurred: torch.Tensor, kpts_xy: torch.Tensor,

@@ -55,6 +55,27 @@ def prefilter_xsobel(img: torch.Tensor, cap: int = 31) -> torch.Tensor:
     return v.to(torch.uint8)
 
 
+def prefilter_xsobel_hw(img: torch.Tensor) -> torch.Tensor:
+    """The PL xsbl2 block's 6-bit offset-binary prefilter of (..., H, W)
+    uint8, integer throughout (tpuslam's prefilter_xsobel_hw, bit-exact
+    with the reference's xsbl2.v and its golden data):
+      interior   = clamp(sobel_x, -32, 31) + 32
+      cols 0,W-1 = 0x20 (forced)
+      rows 0,H-1 = 0    (never written by the 3-line pipeline)
+    Plain PyTorch on both devices: tpuslam computes it in XLA."""
+    x = img.to(torch.int32)
+    d = torch.cat([x[..., 1:], x[..., -1:]], dim=-1) - \
+        torch.cat([x[..., :1], x[..., :-1]], dim=-1)
+    s = torch.zeros_like(x)
+    s[..., 1:-1, :] = d[..., :-2, :] + 2 * d[..., 1:-1, :] + d[..., 2:, :]
+    v = torch.clamp(s, -32, 31) + 32
+    v[..., 0] = 0x20
+    v[..., -1] = 0x20
+    v[..., 0, :] = 0
+    v[..., -1, :] = 0
+    return v.to(torch.uint8)
+
+
 def _vbox_sum(x: torch.Tensor, radius: int) -> torch.Tensor:
     """(2r+1)-row window sum of (..., H, W) integers with zero padding,
     exact, via an integral image over rows (int64)."""

@@ -1,2 +1,3 @@
 """Runtime: the fused-VO chunk driver, the per-frame front end, the
-named-span profiler, the leveled logger and checkpoint/resume."""
+named-span profiler, the leveled logger, checkpoint/resume, the per-frame
+stage dumps and the frame-timing twin."""

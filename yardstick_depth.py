@@ -5,6 +5,8 @@ app run on the card, with quality metrics only.
     JAX_PLATFORMS=cpu python yardstick_depth.py main [--chunk 2]
     JAX_PLATFORMS=cpu python yardstick_depth.py realtime-sgbm|realtime-lk \
         [--workdir DIR]
+    JAX_PLATFORMS=cpu python yardstick_depth.py real-texture \
+        [--workdir DIR]
 
 `main`: FastSlamPipeline.run_staged over the bench's 120 frames
 (chip_smoke.py's sequence, rendered by the port on the CPU) in
@@ -13,7 +15,12 @@ chip_smoke.py's SGBM main path; a small chunk bounds host memory (~15 GB
 at chunk 2; the trajectory does not depend on it).  `realtime-*`:
 tpuslam.cli.slam_realtime.run over chip_smoke.py's per-frame sequence
 (61 frames out and back, written by the port on the CPU into --workdir)
-with the small-memory Mapper and the named depth method.  Prints one JSON
+with the small-memory Mapper and the named depth method.  `real-texture`:
+tests/test_real_texture.py's pipeline (tpuslam's make_sequence with the
+fixture's real frame as texture, written into --workdir and read back,
+run_staged at chunk 20), the yardstick of chip_smoke.py's phase 15 (e),
+which renders the same world on the card (~75 s); its `drift` says where
+the error grows, as chip_smoke.py logs it for the card's runs.  Prints one JSON
 line (no timing: a CPU run says nothing about the card).  It imports both
 packages, so it runs where JAX does, not on the card's machine.
 """
@@ -95,14 +102,52 @@ def realtime(method: str, workdir: str) -> dict:
                 ate_m=res["ate_m"])
 
 
+def real_texture(workdir: str) -> dict:
+    from tpuslam.config import SlamConfig
+    from tpuslam.geometry.camera import StereoCameraModel
+    from tpuslam.geometry.kitti_metric import calc_kitti_sequence_errors
+    from tpuslam.io.dataset import StereoImageDataset
+    from tpuslam.io.synthetic import make_sequence
+    from tpuslam.runtime.fast_pipeline import FastSlamPipeline
+    photo = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tests", "fixtures", "rect_left.npy"))
+    make_sequence(workdir, n_frames=C.RT_FRAMES, width=C.RT_W,
+                  height=C.RT_H, f=C.RT_F, baseline=C.BASELINE,
+                  speed=C.RT_SPEED, yaw_rate=C.RT_YAW, seed=C.RT_SEED,
+                  texture_photo=photo)
+    ds = StereoImageDataset(os.path.join(workdir, "image_0"),
+                            os.path.join(workdir, "image_1"),
+                            os.path.join(workdir, "times.txt"),
+                            os.path.join(workdir, "poses.txt"))
+    items = [ds[i] for i in range(len(ds))]
+    camera = StereoCameraModel.load_kitti(
+        os.path.join(workdir, "calib.txt"), image_size=(C.RT_W, C.RT_H))
+    pipe = FastSlamPipeline(camera, SlamConfig(), chunk=C.RT_CHUNK,
+                            capacity=C.CAPACITY)
+    infos = pipe.run_staged(pipe.stage_chunks(items), items)
+    gt = np.stack([it["ground_truth"] for it in items])
+    est = np.stack([i.pose for i in infos])
+    t_err, r_err = calc_kitti_sequence_errors(gt, est)
+    return dict(config="real texture", frames=len(infos),
+                lost=sum(1 for i in infos[1:] if i.lost),
+                ate_m=float(np.sqrt(np.mean(np.sum(
+                    (est[:, :3, 3] - gt[:, :3, 3]) ** 2, axis=1)))),
+                t_err_pct=t_err, r_err_deg_per_m=r_err,
+                drift=C.drift_profile(infos, gt))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=["main", "realtime-sgbm", "realtime-lk"])
+    ap.add_argument("what", choices=["main", "realtime-sgbm", "realtime-lk",
+                                     "real-texture"])
     ap.add_argument("--chunk", type=int, default=2)
     ap.add_argument("--workdir", default=None)
     a = ap.parse_args(argv)
     if a.what == "main":
         out = main_path(a.chunk)
+    elif a.what == "real-texture":
+        with tempfile.TemporaryDirectory(dir=a.workdir) as wd:
+            out = real_texture(wd)
     else:
         with tempfile.TemporaryDirectory(dir=a.workdir) as wd:
             out = realtime(a.what.split("-")[1], wd)
