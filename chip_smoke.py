@@ -140,6 +140,28 @@ tpuslam.  Phases, each of which raises on failure:
    fixture's real frame, rendered on the card (0 lost, t_err < 1.5 %, ATE
    < 1.5 m, K1-K6 launched).  Each kernel row's `tool_apps` holds its
    launches in (a), (b), (c) and (e).
+16. the multi-device layer (dist/), each part with every counter reset
+   just before it: (a) sharded_frontend_step on 4 shards of the card
+   over the bench's first 8 frames, speckle off and on: K1, K5, K2 and
+   K3's blur once per shard, no plain version, every frame bit for bit
+   frontend_one's, and a mesh of 1 and of 4 timed in turns (the sharding
+   efficiency t(mesh 1) / t(mesh 4)); (b) the sharded dense and sparse
+   pose-graph steps (K7 once per iteration, the root solve on global
+   shard 0) on a 200-vertex noisy loop with a forward closure, and the
+   sharded BA, against lm_solve, lm_solve_sparse and ba_solve on the
+   card within the JAX suite's tolerances, each timed warm; (c)
+   tools/dist_worker.py as two gloo ranks sharing the card, as one
+   process, and cli/slam_multihost.py as two gloo ranks, five processes
+   at once over phase 10's sequence: the ranks equal each other, the VO
+   poses and the partitioned map the one process's and the
+   single-process Mapper's bit for bit, the words split by parity, loop
+   closures, K7 on rank 0 only, the dictionary top-2 on the global mesh,
+   no worker building a kernel, each process's wall and map bytes; (d)
+   one NCCL rank running (b)'s steps with their collectives through
+   NCCL, equal to (b)'s, and two NCCL ranks on the one card (NCCL
+   refuses them: "Duplicate GPU detected", printed).  Each kernel row's
+   `dist` holds its launches in (a), (b), (c)'s two ranks and its one
+   process.
 
 With --spread N the main path, the per-frame path, the SGBM main path,
 the realtime app's sgbm and lk runs and phase 15's real-texture main path
@@ -1698,52 +1720,18 @@ def kitti_size_graph(n=KITTI00_FRAMES, seed=BE_SEED):
     """Phase 14 (c)'s graph (see KITTI00_FRAMES), made with numpy: ground
     truth (n,4,4), noisy poses {id: 4x4 f32}, the link MultiMap, the gross
     outlier's (from, to)."""
-    from tpuslam_torch.mapping.graph import (LOOP_CLOSURE, NEIGHBOR, Link,
-                                             MultiMap)
-    rng = np.random.default_rng(seed)
-    a = 2 * np.pi / BE_LAP
-    step = np.eye(4)
-    step[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
-                    [-np.sin(a), 0, np.cos(a)]]
-    step[:3, 3] = [0, 0, 1.0]
-    gt = [np.eye(4)]
-    for _ in range(n - 1):
-        gt.append(gt[-1] @ step)
-
-    def noise():
-        # tests/test_optim.py's rand_se3(rng, 0.05, 0.01)
-        rvec = rng.normal(0, 0.01, 3)
-        angle = np.linalg.norm(rvec)
-        m = np.eye(4)
-        if angle > 1e-12:
-            k = rvec / angle
-            K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]],
-                          [-k[1], k[0], 0]])
-            m[:3, :3] = np.eye(3) + np.sin(angle) * K + \
-                (1 - np.cos(angle)) * (K @ K)
-        m[:3, 3] = rng.normal(0, 0.05, 3)
-        return m
-
-    info = np.eye(6) * 100.0
-    poses, links, cur = {1: gt[0].astype(np.float32)}, MultiMap(), gt[0]
-    for i in range(1, n):
-        meas = np.linalg.inv(gt[i - 1]) @ gt[i] @ noise()
-        cur = cur @ meas
-        poses[i + 1] = cur.astype(np.float32)
-        links.insert(i, Link(i, i + 1, NEIGHBOR, meas.astype(np.float32),
-                             info))
-
-    def closure(i, j):
-        links.insert(i + 1, Link(i + 1, j + 1, LOOP_CLOSURE, (
-            np.linalg.inv(gt[i]) @ gt[j]).astype(np.float32), info))
+    from tpuslam_torch.io.synthetic import exact_closure, noisy_circuit
+    from tpuslam_torch.mapping.graph import LOOP_CLOSURE, Link
+    gt, poses, links = noisy_circuit(n, BE_LAP, np.random.default_rng(seed))
     for i in range(BE_LAP, n, BE_EVERY):
-        closure(i, i - BE_LAP)
-    closure(n - 3 * BE_LAP // 2, n - BE_LAP // 2 - 1)        # forward
+        exact_closure(links, gt, i, i - BE_LAP)
+    exact_closure(links, gt, n - 3 * BE_LAP // 2, n - BE_LAP // 2 - 1)
     bad = np.eye(4, dtype=np.float32)
     bad[:3, 3] = [25.0, -13.0, 8.0]
     outlier = (n // 2, n // 4)
-    links.insert(outlier[0], Link(*outlier, LOOP_CLOSURE, bad, info))
-    return np.stack(gt), poses, links, outlier
+    links.insert(outlier[0], Link(*outlier, LOOP_CLOSURE, bad,
+                                  np.eye(6) * 100.0))
+    return gt, poses, links, outlier
 
 
 def first_system(poses, links, tau):
@@ -2238,6 +2226,518 @@ def tool_apps_phase(workdir, rows):
                 real_texture_t_err_pct=rt_q["t_err"])
 
 
+# phase 16, the multi-device layer (dist/): the sharded front end's mesh
+# and frames (the bench's first DIST_FRAMES, its timing turns), the
+# sharded pose graph's graph (tests/test_dist.py:141-200's noisy loop
+# with a forward closure, at DIST_PG_VERTICES), the BA problem
+# (tests/test_dist.py:195-225's), their tolerances (the JAX suite's:
+# tests/test_dist.py:106-111 and 249-253), and the processes' time limit
+DIST_SHARDS, DIST_FRAMES, DIST_TURNS = 4, 8, 3
+DIST_PG_VERTICES, DIST_PG_ITERS, DIST_PG_SEED = 200, 5, 9
+DIST_PG_TOL = dict(chi2=2e-3, t=2e-2)
+DIST_BA = dict(W=8, L=256, O=2048, iterations=6, huber_delta=4.0, seed=0)
+DIST_BA_TOL = dict(cost=5e-2, t=5e-3)
+DIST_TIMEOUT_S = 300
+
+
+def noisy_loop_arrays(n=None, seed=DIST_PG_SEED):
+    """tests/test_optim.py's make_noisy_loop (a circle of n poses 1 m
+    apart, odometry noise 0.05 m / 0.01 rad, Omega = 100 I, an exact
+    closure last -> first) with a forward closure as
+    tests/test_dist.py:150-153's (10 -> n - 30, a Woodbury extra), here
+    exact: the suite's arbitrary one (0.5 m off, Omega = 2 I) makes the
+    LM diverge at 200 vertices in tpuslam's lm_solve as in the port's
+    (tests/test_torch_dist.py::test_suite_closure_diverges_in_both), as
+    optim.device graph arrays (pose_arr, e_from, e_to, Z, Omega,
+    free_idx)."""
+    from tpuslam_torch.io.synthetic import exact_closure, noisy_circuit
+    from tpuslam_torch.optim import device as dev
+    n = n or DIST_PG_VERTICES
+    gt, poses, links = noisy_circuit(n, n, np.random.default_rng(seed))
+    exact_closure(links, gt, n - 1, 0)
+    exact_closure(links, gt, 9, n - 31)
+    return dev.graph_to_arrays(poses, links)[1:]
+
+
+def ba_problem(W, L, O, seed):
+    """tests/test_dist.py's _ba_problem: (intr, Tcw0, lms0, obs_cam,
+    obs_lm, uv, obs_valid), numpy."""
+    from tpuslam_torch.io.synthetic import se3_noise
+    rng = np.random.default_rng(seed)
+    intr = np.array([700.0, 700.0, 620.0, 188.0], np.float32)
+    Tcw = np.tile(np.eye(4, dtype=np.float32), (W, 1, 1))
+    for i in range(W):
+        Tcw[i] = np.linalg.inv(se3_noise(rng, 0.02, 0.005)) @ Tcw[i]
+        Tcw[i, 2, 3] += -i * 0.5
+    lms = np.stack([rng.uniform(-8, 8, L), rng.uniform(-3, 3, L),
+                    rng.uniform(8, 30, L)], axis=1).astype(np.float32)
+    obs_cam = rng.integers(0, W, O).astype(np.int32)
+    obs_lm = rng.integers(0, L, O).astype(np.int32)
+    uv = np.zeros((O, 2), np.float32)
+    for k in range(O):
+        T = Tcw[obs_cam[k]]
+        p = T[:3, :3] @ lms[obs_lm[k]] + T[:3, 3]
+        uv[k] = [intr[0] * p[0] / p[2] + intr[2],
+                 intr[1] * p[1] / p[2] + intr[3]]
+    uv += rng.normal(0, 0.3, uv.shape).astype(np.float32)
+    lms0 = lms + rng.normal(0, 0.05, lms.shape).astype(np.float32)
+    Tcw0 = Tcw.copy()
+    for i in range(1, W):
+        Tcw0[i] = se3_noise(rng, 0.02, 0.004).astype(np.float32) @ Tcw0[i]
+    return intr, Tcw0, lms0, obs_cam, obs_lm, uv, np.ones(O, bool)
+
+
+def hold_pg(what, got, ref):
+    """Sharded pose-graph results against a reference's: chi2 per
+    iteration and translations within DIST_PG_TOL."""
+    (gp, gc), (rp, rc) = [(np.asarray(p.cpu() if torch.is_tensor(p) else p),
+                           np.asarray(c.cpu() if torch.is_tensor(c) else c))
+                          for p, c in (got, ref)]
+    dc = float(np.max(np.abs(gc - rc) / np.abs(rc)))
+    dt = float(np.max(np.abs(gp[:, :3, 3] - rp[:, :3, 3])))
+    if not (dc <= DIST_PG_TOL["chi2"] and dt <= DIST_PG_TOL["t"]):
+        raise AssertionError(f"{what}: chi2 rel diff {dc}, translation "
+                             f"diff {dt} m beyond {DIST_PG_TOL}")
+    return dc, dt
+
+
+def timed(fn, warm=False):
+    """fn()'s result, its launches and plain calls (counters reset just
+    before it) and its wall in seconds, synchronised; with `warm`, after
+    one untimed call (the solvers' and the communicator's set-up)."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, launches, plain = counted(fn)
+    return out, launches, plain, time.perf_counter() - t0
+
+
+def dist_frontend_part(lefts, rights):
+    """(a) sharded_frontend_step on a mesh of DIST_SHARDS shards on the
+    card over the bench's first DIST_FRAMES frames, speckle off and on:
+    K1, K5, K2 and K3's blur launched once per shard and no plain
+    version; every frame's outputs equal frontend_one's (with speckle;
+    without it, StereoBM's unspeckled disparity) bit for bit; then a
+    mesh of 1 and the mesh of DIST_SHARDS timed in turns on the same
+    frames, and the sharding efficiency t(mesh 1) / t(mesh 4) (SCALING.md's,
+    at fixed work on one card).  Returns (numbers, the speckle run's
+    launches)."""
+    from tpuslam_torch.config import StereoBMConfig
+    from tpuslam_torch.dist.mesh import (frontend_one, make_mesh,
+                                         sharded_frontend_step)
+    from tpuslam_torch.kernels.stereo_bm import stereo_bm
+    cfg = StereoBMConfig()
+    L = lefts[:DIST_FRAMES].contiguous()
+    R = rights[:DIST_FRAMES].contiguous()
+    mesh = make_mesh(DIST_SHARDS)
+    if mesh.devices != (torch.device("cuda", 0),) * DIST_SHARDS:
+        raise AssertionError(f"make_mesh: {mesh}")
+    n = DIST_SHARDS
+    res, launches = {}, None
+    for speckle in (False, True):
+        step = sharded_frontend_step(mesh, cfg, with_speckle=speckle)
+        got, la, pl, _ = timed(lambda: step(L, R))
+        expect_launches(f"sharded front end, speckle {speckle}", la, pl,
+                        dict(stereo_bm=n, lr_check=n, gftt=n, orb_blur=n))
+        for i in range(DIST_FRAMES):
+            d, e, b = frontend_one(L[i], R[i], cfg)
+            if not speckle:
+                d = stereo_bm(L[i:i + 1], R[i:i + 1], cfg,
+                              with_speckle=False)[0]
+            for a, w, what in zip(got, (d, e, b),
+                                  ("disparity", "response", "blur")):
+                if not torch.equal(a[i], w):
+                    raise AssertionError(f"sharded front end, speckle "
+                                         f"{speckle}: frame {i}'s {what} "
+                                         f"differs from frontend_one's")
+        one = sharded_frontend_step(make_mesh(1), cfg, with_speckle=speckle)
+        walls = {1: [], n: []}
+        for _ in range(DIST_TURNS):
+            for k, fn in ((1, one), (n, step)):
+                walls[k].append(timed(lambda: fn(L, R))[3] * 1e3)
+        m1, mn = (float(np.median(walls[k])) for k in (1, n))
+        res[f"speckle_{'on' if speckle else 'off'}"] = dict(
+            mesh1_ms=m1, mesh4_ms=mn, efficiency=m1 / mn)
+        launches = la
+        log(f"# multi-device (a) sharded front end, speckle "
+            f"{'on' if speckle else 'off'}: {DIST_FRAMES} frames "
+            f"{WIDTH}x{HEIGHT} on {n} shards of one card, each frame bit "
+            f"for bit frontend_one's; launches "
+            f"{ {k: v for k, v in la.items() if v} }; mesh of 1 "
+            f"{m1:.3f} ms, mesh of {n} "
+            f"{mn:.3f} ms (medians of {DIST_TURNS} turns), sharding "
+            f"efficiency {m1 / mn:.4f}")
+    return res, launches
+
+
+def dist_backend_runs(mesh, arrays):
+    """The sharded dense and sparse pose-graph steps on `mesh` over the
+    graph `arrays`: ((poses, chis) of each, launches and walls)."""
+    from tpuslam_torch.dist.mesh import (pad_edges, sharded_pose_graph_step,
+                                         sharded_pose_graph_step_sparse)
+    from tpuslam_torch.optim import device as dev
+    pose_arr, e_from, e_to, Z, Omega, free_idx = arrays
+    V, it = len(pose_arr), DIST_PG_ITERS
+    xsel, xp, xq = dev.classify_extra_edges(e_from, e_to, free_idx)
+    ef, et, Zp, Op = pad_edges(e_from, e_to, Z, Omega, mesh.size)
+    xsel_p = np.full(len(ef), -1, np.int32)
+    xsel_p[:len(xsel)] = xsel
+    dense, l_d, p_d, w_d = timed(lambda: sharded_pose_graph_step(
+        mesh, V, V - 1, iterations=it)(pose_arr, ef, et, Zp, Op, free_idx),
+        warm=True)
+    expect_launches("sharded dense step", l_d, p_d, {})
+    sparse, l_s, p_s, w_s = timed(lambda: sharded_pose_graph_step_sparse(
+        mesh, V - 1, iterations=it)(pose_arr, ef, et, Zp, Op, free_idx,
+                                    xsel_p, xp, xq), warm=True)
+    expect_launches("sharded sparse step", l_s, p_s, dict(thomas=it))
+    return dense, sparse, l_s, dict(dense_s=w_d, sparse_s=w_s)
+
+
+def dist_backend_part():
+    """(b) the sharded dense and sparse pose-graph steps and the sharded
+    BA on DIST_SHARDS shards of the card, against lm_solve,
+    lm_solve_sparse and ba_solve on the card: within the JAX suite's
+    tolerances; K7 launched once per iteration by the sparse step (its
+    root solve on global shard 0 alone); the wall of each (after one
+    untimed call).  Returns
+    (numbers, the sharded runs' launches, the graph, the steps'
+    results)."""
+    from tpuslam_torch.dist.mesh import (make_mesh, make_sharded_ba_step,
+                                         shard_ba_problem)
+    from tpuslam_torch.optim import device as dev
+    from tpuslam_torch.optim.ba import ba_solve
+    arrays = noisy_loop_arrays()
+    pose_arr, e_from, e_to, Z, Omega, free_idx = arrays
+    V, it = len(pose_arr), DIST_PG_ITERS
+    xsel, xp, xq = dev.classify_extra_edges(e_from, e_to, free_idx)
+
+    def cu(*a):
+        return [torch.as_tensor(x, device="cuda") for x in a]
+    graph = cu(pose_arr, e_from, e_to, Z, Omega, free_idx)
+    ref, _, _, w_ref = timed(lambda: dev.lm_solve(*graph, V - 1,
+                                                  iterations=it), warm=True)
+    ref_sp, l_r, p_r, w_rsp = timed(lambda: dev.lm_solve_sparse(
+        *graph, V - 1, *cu(xsel, xp, xq), iterations=it), warm=True)
+    expect_launches("lm_solve_sparse", l_r, p_r, dict(thomas=it))
+    mesh = make_mesh(DIST_SHARDS, axis="edges")
+    dense, sparse, launches, walls = dist_backend_runs(mesh, arrays)
+    errs = dict(dense=hold_pg("sharded dense vs lm_solve", dense, ref),
+                sparse=hold_pg("sharded sparse vs lm_solve_sparse", sparse,
+                               ref_sp),
+                sparse_dense=hold_pg("sharded sparse vs lm_solve", sparse,
+                                     ref))
+
+    p = DIST_BA
+    intr, Tcw0, lms0, oc, ol, uv, ov = ba_problem(p["W"], p["L"], p["O"],
+                                                  p["seed"])
+    (bT, _, bc), _, _, w_ba = timed(lambda: ba_solve(
+        *cu(Tcw0, lms0, intr, oc, ol, uv, ov), n_cams=p["W"], n_lms=p["L"],
+        iterations=p["iterations"], huber_delta=p["huber_delta"]),
+        warm=True)
+    lms_p, oc_p, ol_p, uv_p, ov_p, L_local, _ = shard_ba_problem(
+        lms0, oc, ol, uv, ov, DIST_SHARDS)
+    (sT, _, sc), l_b, p_b, w_sba = timed(lambda: make_sharded_ba_step(
+        make_mesh(DIST_SHARDS, axis="landmarks"), p["W"], L_local,
+        iterations=p["iterations"], huber_delta=p["huber_delta"])(
+        Tcw0, lms_p, intr, oc_p, ol_p, uv_p, ov_p), warm=True)
+    expect_launches("sharded BA", l_b, p_b, {})
+    dcost = abs(float(sc) - float(bc)) / float(bc)
+    dtb = float((sT - bT)[:, :3, 3].abs().max())
+    if not (dcost <= DIST_BA_TOL["cost"] and dtb <= DIST_BA_TOL["t"]):
+        raise AssertionError(f"sharded BA vs ba_solve: cost rel diff "
+                             f"{dcost}, translation diff {dtb} m beyond "
+                             f"{DIST_BA_TOL}")
+    res = dict(lm_solve_s=w_ref, lm_solve_sparse_s=w_rsp,
+               sharded_dense_s=walls["dense_s"],
+               sharded_sparse_s=walls["sparse_s"], ba_solve_s=w_ba,
+               sharded_ba_s=w_sba, chi2_last=float(sparse[1][-1]),
+               chi2_rel_diff={k: v[0] for k, v in errs.items()},
+               t_diff_m={k: v[1] for k, v in errs.items()},
+               ba_cost=float(sc), ba_cost_rel_diff=dcost, ba_t_diff_m=dtb)
+    log(f"# multi-device (b) a {V}-vertex loop graph with a forward "
+        f"closure, {DIST_PG_ITERS} LM iterations: lm_solve {w_ref:.4f} s, "
+        f"lm_solve_sparse {w_rsp:.4f} s, sharded dense on {DIST_SHARDS} "
+        f"shards {walls['dense_s']:.4f} s, sharded sparse "
+        f"{walls['sparse_s']:.4f} s (K7 {launches['thomas']} launches, one "
+        f"per iteration); chi2 rel diffs {res['chi2_rel_diff']}, "
+        f"translation diffs {res['t_diff_m']} m (tolerance {DIST_PG_TOL}); "
+        f"BA W={p['W']} L={p['L']} O={p['O']}: ba_solve {w_ba:.4f} s, "
+        f"sharded {w_sba:.4f} s, cost {float(sc):.4f} (rel diff "
+        f"{dcost:.2e}), translations within {dtb:.2e} m")
+    return res, launches, arrays, (dense, sparse)
+
+
+def _run_all(cmds, workdir, tag):
+    """Start every command at once (from the repository root), wait for
+    all, each within DIST_TIMEOUT_S; returns each one's wall from the
+    common start.  Kills them all and raises if one fails."""
+    import os
+    import subprocess as sp
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = [os.path.join(workdir, f"{tag}_{i}.log") for i in range(len(cmds))]
+    t0 = time.perf_counter()
+    procs = []
+    for c, path in zip(cmds, logs):
+        with open(path, "w") as f:
+            procs.append(sp.Popen(c, cwd=root, stdout=f, stderr=sp.STDOUT))
+    walls = [None] * len(procs)
+    try:
+        while None in walls:
+            if time.perf_counter() - t0 > DIST_TIMEOUT_S:
+                raise AssertionError(f"{tag}: a process ran past "
+                                     f"{DIST_TIMEOUT_S} s")
+            for i, p in enumerate(procs):
+                if walls[i] is None and p.poll() is not None:
+                    walls[i] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c, p, path in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            with open(path) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"{' '.join(c)} exited {p.returncode}:\n"
+                                 f"{tail}")
+    return walls
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_processes_part(seq, workdir):
+    """(c) two gloo ranks on the one card through
+    tpuslam_torch/tools/dist_worker.py over phase 10's sequence, a
+    one-process run of the same worker and cli/slam_multihost.py as two
+    gloo ranks, all five processes at once (each one's wall from the
+    common start): both ranks' VO and optimised
+    poses equal; the VO poses, the partitioned mapper's words, links and
+    link transforms equal the one-process run's bit for bit; the ranks'
+    words disjoint and complementary (even / odd ids) and each with
+    feature bytes; the partitioned mapper's words, links and transforms
+    equal the single-process Mapper's bit for bit and its likelihoods to
+    rtol 1e-12; at least one loop closure; the global mesh's pose graph
+    makes progress (chi2 falls), K7 on rank 0 only; no worker builds a
+    kernel library (the build phase did, they load them); the sharded
+    dictionary top-2 on it equals one unsharded search (its CUDA
+    all-gathers through the host for gloo, counted); every part's kernels
+    on the card, no plain version; the CLI's two ranks' poses equal.
+    Returns (numbers, the two ranks' launches summed, the one process's
+    launches)."""
+    import os
+    worker = [sys.executable, "-m", "tpuslam_torch.tools.dist_worker", seq]
+    d2, d1, dc = (os.path.join(workdir, k) for k in ("dist2", "dist1",
+                                                     "dist_cli"))
+    wc, cc = f"localhost:{_free_port()}", f"localhost:{_free_port()}"
+    cmds = [worker + [d2, wc, "2", str(r), "--backend", "gloo"]
+            for r in range(2)] + [worker + [d1, "-", "1", "0"]]
+    cmds += [[sys.executable, "-m", "tpuslam_torch.cli.slam_multihost", seq,
+              "-coord", cc, "-num-procs", "2", "-rank", str(r), "-out", dc,
+              "-quiet", "-backend", "gloo"] for r in range(2)]
+    walls = _run_all(cmds, workdir, "dist")
+    r = [np.load(os.path.join(d2, f"rank{i}.npz")) for i in range(2)]
+    one = np.load(os.path.join(d1, "rank0.npz"))
+
+    def js(z, k):
+        return json.loads(str(z[k]))
+
+    def same(what, a, b):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"multi-device (c): {what} differ")
+    for k in ("poses", "opt_poses", "chis", "sp_opt_poses", "sp_chis",
+              "pm_lik", "pm_words", "pm_links", "pm_link_tfs"):
+        same(f"the two ranks' {k}", r[0][k], r[1][k])
+    same("the VO poses of two ranks and of one process", r[0]["poses"],
+         one["poses"])
+    for k in ("pm_words", "pm_links", "pm_link_tfs"):
+        same(f"{k} of two ranks and of one process", r[0][k], one[k])
+        same(f"the partitioned and the single-process mapper's {k[3:]}",
+             r[0][k], r[0]["sm_" + k[3:]])
+    same("likelihood queries", r[0]["pm_lik_cands"], r[0]["sm_lik_cands"])
+    if not np.allclose(r[0]["pm_lik"], r[0]["sm_lik"], rtol=1e-12,
+                       atol=1e-14) or not r[0]["pm_lik"].size:
+        raise AssertionError("multi-device (c): likelihoods differ")
+    w0, w1 = (set(z["owned_words"].tolist()) for z in r)
+    if w0 & w1 or len(w0) + len(w1) != int(r[0]["total_words"]) or \
+            any(w % 2 for w in w0) or not all(w % 2 for w in w1):
+        raise AssertionError("multi-device (c): owned words not disjoint "
+                             "and complementary by parity")
+    if min(int(z["owned_feat_bytes"]) for z in r) <= 0:
+        raise AssertionError("multi-device (c): a rank holds no features")
+    if int(r[0]["n_lc_pm"]) < 1 or int(r[0]["n_lc_pm"]) != \
+            int(r[0]["n_lc_sm"]):
+        raise AssertionError(f"multi-device (c): loop closures "
+                             f"{int(r[0]['n_lc_pm'])} (single-process "
+                             f"{int(r[0]['n_lc_sm'])})")
+    for k in ("chis", "sp_chis"):
+        if not (np.isfinite(r[0][k]).all() and r[0][k][-1] < r[0][k][0]):
+            raise AssertionError(f"multi-device (c): {k} {r[0][k]}")
+    if int(r[0]["n_devices"]) != 4 or str(r[0]["backend"]) != "gloo":
+        raise AssertionError("multi-device (c): not a 2 x 2 gloo mesh")
+    same("the ranks' dictionary top-2", r[0]["top2_w1"], r[1]["top2_w1"])
+    if not all(bool(z["top2_equal"]) for z in r + [one]):
+        raise AssertionError("multi-device (c): the sharded dictionary "
+                             "top-2 differs from one unsharded search")
+    n = len(r[0]["poses"])
+    sizes = [n - n // 2, n // 2]
+    chunk = 30
+    for i, z in enumerate(r + [one]):
+        if any(js(z, "built_s").values()):
+            raise AssertionError(f"multi-device (c): a worker built a "
+                                 f"kernel library: {js(z, 'built_s')}")
+    for i, z in enumerate(r):
+        la, pl = js(z, "launches"), js(z, "plain")
+        if any(v for part in pl.values() for v in part.values()):
+            raise AssertionError(f"multi-device (c): rank {i} ran a plain "
+                                 f"version: {pl}")
+        batches = -(-sizes[i] // chunk)
+        fe = {k: la["vo"][k] for k in ("stereo_bm", "lr_check", "gftt",
+                                       "orb")}
+        if fe != dict.fromkeys(fe, batches) or la["vo"]["lm_refine"] < 1 \
+                or la["vo"]["median"]:
+            raise AssertionError(f"multi-device (c): rank {i}'s VO "
+                                 f"launches {la['vo']}")
+        if la["pose_graph"]["thomas"] != (DIST_PG_ITERS if i == 0 else 0):
+            raise AssertionError(f"multi-device (c): rank {i}'s K7 "
+                                 f"launches {la['pose_graph']}")
+    p0, p1 = (np.loadtxt(os.path.join(dc, f"poses_rank{i}.txt"))
+              for i in range(2))
+    same("the CLI's two ranks' poses", p0, p1)
+    cli = []
+    for i in range(2):
+        with open(os.path.join(dc, f"result_rank{i}.json")) as f:
+            cli.append(json.load(f))
+    if p0.shape != (n, 12) or cli[0]["n_frames"] != n:
+        raise AssertionError(f"multi-device (c): the CLI wrote {p0.shape}")
+
+    def total(z):
+        la = js(z, "launches")
+        return {k: sum(part[k] for part in la.values()) for k in la["vo"]}
+    two = {k: total(r[0])[k] + total(r[1])[k] for k in total(r[0])}
+    res = dict(
+        walls_s=dict(rank0=walls[0], rank1=walls[1], one_process=walls[2],
+                     cli_rank0=walls[3], cli_rank1=walls[4]),
+        parts_s={f"rank{i}": js(z, "seconds") for i, z in enumerate(r)} |
+        dict(one_process=js(one, "seconds")),
+        map_bytes={f"rank{i}": js(z, "map_bytes") for i, z in enumerate(r)}
+        | dict(one_process=js(one, "map_bytes")),
+        cli_map_bytes=[c["map_bytes"] for c in cli],
+        collectives=js(r[0], "collectives"),
+        loop_closures=int(r[0]["n_lc_pm"]), words=int(r[0]["total_words"]),
+        cli_loop_closures=cli[0]["n_loop_closures"])
+    log(f"# multi-device (c) two gloo ranks on one card over {n} frames "
+        f"{WIDTH}x{HEIGHT} (tools/dist_worker.py), a one-process run and "
+        f"the CLI's two ranks, five processes at once: walls "
+        f"{json.dumps({k: round(v, 3) for k, v in res['walls_s'].items()})}"
+        f" s; per part {json.dumps(res['parts_s'])}; map bytes per rank "
+        f"{json.dumps(res['map_bytes'])}; CLI "
+        f"{json.dumps(res['cli_map_bytes'])}"
+        f"; rank 0's collectives {json.dumps(res['collectives'])} (the "
+        f"top-2's CUDA all-gathers through the host for gloo: "
+        f"{res['collectives']['dict_top2']['host_hop']}); "
+        f"{res['loop_closures']} loop closures, {res['words']} words; every "
+        f"equality held")
+    return res, two, total(one)
+
+
+NCCL_PAIR = ("import sys, torch, torch.distributed as d; "
+             "torch.cuda.set_device(0); "
+             "d.init_process_group('nccl', init_method='tcp://' + sys.argv[1],"
+             " world_size=2, rank=int(sys.argv[2])); "
+             "x = torch.ones(4, device='cuda'); d.all_reduce(x); "
+             "torch.cuda.synchronize(); print('reduced', x.tolist()); "
+             "d.destroy_process_group()")
+
+
+def dist_nccl_part(arrays, results, workdir):
+    """(d) one NCCL rank (init_process_group("nccl", world_size=1)): the
+    dense and sparse steps on a mesh of DIST_SHARDS shards with their
+    collectives through NCCL on the card, equal to (b)'s one-process
+    results within DIST_PG_TOL; then two NCCL ranks on the one card,
+    each within 60 s, which NCCL is expected to refuse ("Duplicate GPU
+    detected"): what it did is printed, not asserted."""
+    import os
+    import subprocess as sp
+    import torch.distributed as dist
+    from tpuslam_torch.dist import mesh as M
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = M.make_mesh(DIST_SHARDS, axis="edges")
+        if mesh.group is None or dist.get_backend() != "nccl":
+            raise AssertionError("multi-device (d): no NCCL group")
+        M.reset_collectives()
+        dense, sparse, launches, walls = dist_backend_runs(mesh, arrays)
+        coll = dict(M.COLLECTIVES)
+    finally:
+        dist.destroy_process_group()
+    # per step and iteration: the system's sum and max and chi2's sum,
+    # and the sparse step's broadcast; each step ran warm, then timed
+    want = dict(all_reduce=2 * 2 * 3 * DIST_PG_ITERS,
+                broadcast=2 * DIST_PG_ITERS, all_gather=0, host_hop=0)
+    if coll != want:
+        raise AssertionError(f"multi-device (d): collectives {coll}, "
+                             f"expected {want}")
+    errs = (hold_pg("one NCCL rank, dense", dense, results[0]),
+            hold_pg("one NCCL rank, sparse", sparse, results[1]))
+    coord = f"localhost:{_free_port()}"
+    logs = [os.path.join(workdir, f"nccl_pair_{i}.log") for i in range(2)]
+    procs = []
+    for i, path in enumerate(logs):
+        with open(path, "w") as f:
+            procs.append(sp.Popen([sys.executable, "-c", NCCL_PAIR, coord,
+                                   str(i)], stdout=f, stderr=sp.STDOUT))
+    t0 = time.perf_counter()
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, 60 - (time.perf_counter() - t0)))
+        except sp.TimeoutExpired:
+            pass
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    out = []
+    for p, path in zip(procs, logs):
+        with open(path) as f:
+            text = f.read()
+        dup = "Duplicate GPU" in text
+        out.append(dict(rc=p.returncode, duplicate_gpu=dup,
+                        reduced="reduced" in text))
+    log(f"# multi-device (d) one NCCL rank: dense {walls['dense_s']:.4f} s"
+        f", sparse {walls['sparse_s']:.4f} s (K7 {launches['thomas']}), "
+        f"collectives {coll}, chi2 rel diff / translation diff to (b) "
+        f"{errs}; two NCCL ranks on one card: {out}")
+    return dict(walls, collectives=coll, nccl_pair=out)
+
+
+def multi_device_phase(rows, lefts, rights, seq, workdir):
+    """Phase 16, the multi-device layer on the card: (a)-(d).  Adds each
+    kernel's launches in (a), (b) and (c) to its row (`dist`)."""
+    from tpuslam_torch.kernels import _cuda
+    t0 = time.perf_counter()
+    fe, l_a = dist_frontend_part(lefts, rights)
+    be, l_b, arrays, results = dist_backend_part()
+    pr, l_two, l_one = dist_processes_part(seq, workdir)
+    nc = dist_nccl_part(arrays, results, workdir)
+    for k in _cuda.ALL:
+        if k in rows:
+            rows[k]["dist"] = dict(sharded_frontend=l_a[k],
+                                   sharded_backend=l_b[k],
+                                   two_ranks=l_two[k], one_process=l_one[k])
+    took = time.perf_counter() - t0
+    log(f"# multi-device: phase 16 took {took:.2f} s")
+    return dict(frontend=fe, backend=be, processes=pr, nccl=nc,
+                seconds=took)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--spread", type=int, default=0)
@@ -2298,6 +2798,7 @@ def main():
         backend_phase(seq, workdir, pf_res, rows)
         backend_scale_phase(rows)
         tools = tool_apps_phase(workdir, rows)
+        multi = multi_device_phase(rows, lefts, rights, seq, workdir)
         log(f"# fps: default configuration + Mapper {fps:.3f}, the same "
             f"from PNG files (run_ingest) {ingest_fps:.3f}, slice "
             f"{slice_fps:.3f}, per-frame batch path {pf_fps:.3f}, SGBM main "
@@ -2308,6 +2809,7 @@ def main():
             {k: pf_launches[k] for k in _cuda.KERNELS}))
         log("# depth engines: " + json.dumps(depth))
         log("# tool apps: " + json.dumps(tools))
+        log("# multi-device: " + json.dumps(multi))
         if args.spread:
             pf_spread_phase(seq, workdir, args.spread)
             realtime_spread_phase(seq, workdir, args.spread)
@@ -2333,7 +2835,7 @@ def main():
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
         "library_ms", "via", "tool_launches", "phases", "wide",
-        "per_frame", "per_frame_loop_closure", "tool_apps",
+        "per_frame", "per_frame_loop_closure", "tool_apps", "dist",
         "launches_scale",
         "n", "m", "rel_err", "bit_equal", "step_us", "at_cut", "at_4541")
         if k in rows[n]}

@@ -76,7 +76,9 @@ COPIED_DEFS = [("kernels/gftt.py", "select_from_candidates"),
                ("calib/calibrate.py", "_lm"),
                ("calib/calibrate.py", "stereo_rectify"),
                ("cli/stereo_calib.py", "_pairs"),
-               ("cli/stereo_capture.py", "_default_camera")]
+               ("cli/stereo_capture.py", "_default_camera"),
+               ("dist/mesh.py", "pad_edges"),
+               ("dist/mesh.py", "shard_ba_problem")]
 KERNELS = ["stereo_bm", "gftt", "orb", "median", "lr_check", "lm_refine"]
 BACKEND = ["thomas"]
 
@@ -230,7 +232,9 @@ def test_import_leaves_jax_out():
     """Importing the port, its main path, its batch and realtime apps, its
     depth engines, its pose-graph device back end, checkpoints and replay
     included, and its tool apps (kernel test, self-tests, calibration,
-    capture), loads no JAX, no tpuslam and no Pillow."""
+    capture) and its multi-device layer (mesh, multi-process VO,
+    partitioned map, slam_multihost, the rank worker), loads no JAX, no
+    tpuslam and no Pillow."""
     code = ("import sys; import tpuslam_torch; "
             "import tpuslam_torch.runtime.fast_pipeline, "
             "tpuslam_torch.io.synthetic, tpuslam_torch.convert, "
@@ -248,7 +252,11 @@ def test_import_leaves_jax_out():
             "tpuslam_torch.cli.stereo_calib, "
             "tpuslam_torch.cli.stereo_capture, tpuslam_torch.dist, "
             "tpuslam_torch.runtime.dumps, tpuslam_torch.runtime.frame_meas, "
-            "tpuslam_torch.io.imu, tpuslam_torch.io.patterns; "
+            "tpuslam_torch.io.imu, tpuslam_torch.io.patterns, "
+            "tpuslam_torch.dist.multihost, "
+            "tpuslam_torch.dist.partitioned_map, "
+            "tpuslam_torch.cli.slam_multihost, "
+            "tpuslam_torch.tools.dist_worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'tpuslam', 'PIL')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -413,7 +421,8 @@ def _entry_points():
     from tpuslam_torch.calib import chessboard
     from tpuslam_torch.cli import hw_test, kernel_test, stereo_calib
     from tpuslam_torch.cli import stereo_capture
-    from tpuslam_torch.dist import mesh
+    from tpuslam_torch.dist import mesh, multihost, partitioned_map
+    from tpuslam_torch.cli import slam_multihost
     from tpuslam_torch.io.synthetic import photo_pyramid
     return {
         "FastSlamPipeline": FastSlamPipeline.__init__,
@@ -456,6 +465,16 @@ def _entry_points():
         "stereo_calib.run": stereo_calib.run,
         "stereo_capture.run": stereo_capture.run,
         "photo_pyramid": photo_pyramid,
+        "make_mesh": mesh.make_mesh,
+        "initialize": multihost.initialize,
+        "extract_block_features": multihost.extract_block_features,
+        "vo_from_features": multihost.vo_from_features,
+        "run_multihost_vo": multihost.run_multihost_vo,
+        "ShardedVWDictionary": partitioned_map.ShardedVWDictionary.__init__,
+        "PartitionedMapper": partitioned_map.PartitionedMapper.__init__,
+        "sharded_dictionary_from_reference":
+            convert.sharded_dictionary_from_reference,
+        "slam_multihost.run": slam_multihost.run,
     }
 
 
@@ -481,7 +500,12 @@ def _entry_points():
                                   "frontend_one", "find_chessboard",
                                   "calibrate_camera", "stereo_calibrate",
                                   "stereo_calib.run", "stereo_capture.run",
-                                  "photo_pyramid"])
+                                  "photo_pyramid", "make_mesh",
+                                  "initialize", "extract_block_features",
+                                  "vo_from_features", "run_multihost_vo",
+                                  "ShardedVWDictionary", "PartitionedMapper",
+                                  "sharded_dictionary_from_reference",
+                                  "slam_multihost.run"])
 def test_entry_point_defaults_to_the_card(name):
     """Every entry point runs on the card unless the caller asks for the
     CPU (read from the signature: nothing is built here)."""

@@ -932,3 +932,129 @@ def test_photo_render_card_against_cpu():
         d = np.abs(card.cpu().numpy().astype(np.int32) -
                    cpu.numpy().astype(np.int32))
         assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+
+
+# ------------------------------------------------- the multi-device layer
+
+def test_sharded_frontend_on_the_card(pair):
+    """sharded_frontend_step on 2 shards of the card over the fixture pair
+    and its mirror: K1, K5, K2 and K3's blur launched once per shard, no
+    plain version, every frame's outputs bit for bit frontend_one's."""
+    from tpuslam_torch.dist.mesh import (frontend_one, make_mesh,
+                                         sharded_frontend_step)
+    from tpuslam_torch.kernels import _cuda
+    lb, rb = pair
+    mesh = make_mesh(2)
+    _cuda.reset_counters()
+    got = sharded_frontend_step(mesh)(lb, rb)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == dict(
+        stereo_bm=2, lr_check=2, gftt=2, orb_blur=2)
+    assert not any(_cuda.PLAIN_CALLS.values())
+    for i in range(2):
+        for a, b in zip(got, frontend_one(lb[i], rb[i])):
+            assert torch.equal(a[i], b)
+
+
+def _noisy_loop_arrays(n=60, seed=3):
+    """A noisy loop of n poses (io.synthetic.noisy_circuit: odometry noise
+    0.05 m / 0.01 rad, Omega = 100 I) with exact closures last -> first
+    and forward 9 -> n - 21 (a Woodbury extra), as optim.device graph
+    arrays."""
+    from tpuslam_torch.io.synthetic import exact_closure, noisy_circuit
+    from tpuslam_torch.optim import device as dev
+    gt, poses, links = noisy_circuit(n, n, np.random.default_rng(seed))
+    exact_closure(links, gt, n - 1, 0)
+    exact_closure(links, gt, 9, n - 21)
+    return dev.graph_to_arrays(poses, links)[1:]
+
+
+def test_sharded_sparse_step_root_solve_on_k7():
+    """The sparse sharded step on 4 shards of the card: K7 launched once
+    per iteration (the root solve on global shard 0 alone), no plain
+    solve; within chi2 rtol 2e-3 and translations 2e-2 m of
+    lm_solve_sparse on the card and of the same step on the CPU."""
+    _need_card()
+    from tpuslam_torch.dist.mesh import (make_mesh, pad_edges,
+                                         sharded_pose_graph_step_sparse)
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.optim import device as dev
+    pose_arr, e_from, e_to, Z, Omega, free_idx = _noisy_loop_arrays()
+    V, it = len(pose_arr), 5
+    xsel, xp, xq = dev.classify_extra_edges(e_from, e_to, free_idx)
+    assert len(xp) == 1
+    ef, et, Zp, Op = pad_edges(e_from, e_to, Z, Omega, 4)
+    xsel_p = np.full(len(ef), -1, np.int32)
+    xsel_p[:len(xsel)] = xsel
+    args = (pose_arr, ef, et, Zp, Op, free_idx, xsel_p, xp, xq)
+    _cuda.reset_counters()
+    card = sharded_pose_graph_step_sparse(make_mesh(4, axis="edges"), V - 1,
+                                          iterations=it)(*args)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["thomas"] == it and not any(
+        _cuda.PLAIN_CALLS.values())
+    cpu = sharded_pose_graph_step_sparse(
+        make_mesh(4, axis="edges", device="cpu"), V - 1,
+        iterations=it)(*args)
+    ref = dev.lm_solve_sparse(*(torch.as_tensor(a, device="cuda") for a in (
+        pose_arr, e_from, e_to, Z, Omega, free_idx)), V - 1,
+        *(torch.as_tensor(a, device="cuda") for a in (xsel, xp, xq)),
+        iterations=it)
+    for other in (cpu, ref):
+        np.testing.assert_allclose(card[1].cpu().numpy(),
+                                   other[1].cpu().numpy(), rtol=2e-3)
+        np.testing.assert_allclose(card[0].cpu().numpy()[:, :3, 3],
+                                   other[0].cpu().numpy()[:, :3, 3], rtol=0,
+                                   atol=2e-2)
+
+
+def test_two_gloo_ranks_on_the_card(tmp_path):
+    """tools/dist_worker.py as two gloo ranks sharing the card and as one
+    process, over a 6-frame 320x240 sequence rendered on the card: the
+    ranks' poses equal each other, the VO poses and the partitioned
+    mapper's words and links the one process's bit for bit, and the
+    single-process Mapper's; the words split by parity; K1, K5, K2 and K3
+    launched in each rank's VO and K7 on rank 0 only, no plain version."""
+    _need_card()
+    import json
+    import socket
+    import subprocess
+    import sys
+    from tpuslam_torch.io.synthetic import write_sequence
+    seq = write_sequence(str(tmp_path / "seq"), n_frames=6, width=320,
+                         height=240, f=260.0, baseline=0.54, speed=0.3,
+                         seed=9)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        coord = f"localhost:{s.getsockname()[1]}"
+    worker = [sys.executable, "-m", "tpuslam_torch.tools.dist_worker", seq]
+    cmds = [worker + [str(tmp_path / "two"), coord, "2", str(r), "--backend",
+                      "gloo", "--chunk", "4"] for r in range(2)]
+    cmds.append(worker + [str(tmp_path / "one"), "-", "1", "0", "--chunk",
+                          "4"])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(c, cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for c in cmds]
+    logs = [p.communicate(timeout=600)[0].decode(errors="replace")
+            for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    r0, r1 = (np.load(tmp_path / "two" / f"rank{i}.npz") for i in range(2))
+    one = np.load(tmp_path / "one" / "rank0.npz")
+    for k in ("poses", "opt_poses", "sp_opt_poses", "pm_words", "pm_links",
+              "pm_link_tfs", "pm_lik"):
+        np.testing.assert_array_equal(r0[k], r1[k])
+    for k in ("poses", "pm_words", "pm_links", "pm_link_tfs"):
+        np.testing.assert_array_equal(r0[k], one[k])
+    for k in ("words", "links", "link_tfs"):
+        np.testing.assert_array_equal(r0["pm_" + k], r0["sm_" + k])
+    w0, w1 = (set(r["owned_words"].tolist()) for r in (r0, r1))
+    assert not w0 & w1 and len(w0) + len(w1) == int(r0["total_words"])
+    assert all(w % 2 == 0 for w in w0) and all(w % 2 == 1 for w in w1)
+    for i, r in enumerate((r0, r1)):
+        la = json.loads(str(r["launches"]))
+        assert not any(v for part in json.loads(str(r["plain"])).values()
+                       for v in part.values())
+        for k in ("stereo_bm", "lr_check", "gftt", "orb", "lm_refine"):
+            assert la["vo"][k] >= 1, (i, k, la)
+        assert la["pose_graph"]["thomas"] == (5 if i == 0 else 0)

@@ -245,3 +245,28 @@ def test_chunk_driver_matches_reference(rng, monkeypatch):
         np.testing.assert_array_equal(drv.train[:n].numpy(),
                                       np.asarray(train)[:n])
     assert int(count) > 0
+
+
+def test_pipeline_gives_no_device_dictionary_to_a_partitioned_mapper(
+        fwd_seq, reference_mapper):
+    """FastSlamPipeline starts its per-chunk device dictionary only for a
+    mapper whose `device_dict_ok` is True, as tpuslam's does
+    (tpuslam/runtime/fast_pipeline.py:121): a PartitionedMapper (rank 0
+    of 1) searches its own sharded dictionary, gets no ChunkDictDriver,
+    and makes tpuslam's decisions (its Mapper's, on this stream)."""
+    from tpuslam_torch.dist.partitioned_map import PartitionedMapper
+    from tpuslam_torch.mapping.mapper import Mapper
+    from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
+    assert Mapper.device_dict_ok and not PartitionedMapper.device_dict_ok
+    tcfg = convert.config_from_reference(_cfg(**LC_CFG))
+    cam = convert.camera_from_reference(_camera(fwd_seq))
+    pm = PartitionedMapper(cam, tcfg.mapper, tcfg.matching, tcfg.pnp,
+                           rank=0, world=1, device="cpu")
+    pm.draws_fn = _jax_draws
+    pipe = FastSlamPipeline(cam, tcfg, chunk=6, capacity=384,
+                            draws_fn=_jax_draws, device="cpu")
+    assert pipe.device_dict
+    pipe.run(fwd_seq, mapper=pm)
+    assert pipe._dict_driver is None and not pm.word_precomputed
+    _assert_same_dictionary(pm, reference_mapper)
+    assert pm.loop_closures == reference_mapper.loop_closures

@@ -284,6 +284,130 @@ def test_port_took_the_plain_versions(runs):
     assert plain["lm_refine"] >= 5 + runs["got"]["n_loop_closures"]
 
 
+# --- the multi-process back end over this run's stream ---------------------
+
+def _features(frames, cap=1536):
+    """The frames' features laid out as dist/multihost.py gathers them."""
+    n = len(frames)
+    feats = dict(kpts=np.zeros((n, cap, 3), np.float32),
+                 pts3d=np.zeros((n, cap, 3), np.float32),
+                 desc=np.zeros((n, cap, 32), np.uint8),
+                 n_kpts=np.zeros((n,), np.int32))
+    for i, f in enumerate(frames):
+        k = len(f.kpts)
+        feats["kpts"][i, :k] = f.kpts
+        feats["pts3d"][i, :k] = f.kpts3d
+        feats["desc"][i, :k] = f.desc
+        feats["n_kpts"][i] = k
+    return feats, np.array([f.stamp for f in frames])
+
+
+def _reference_camera(cam):
+    from tpuslam.geometry.camera import StereoCameraModel
+    return StereoCameraModel(P_l=cam.P_l, P_r=cam.P_r, width=cam.width,
+                             height=cam.height)
+
+
+def test_vo_from_features_matches_reference(runs):
+    """dist/multihost.vo_from_features over the port's run's features,
+    tpuslam's draws injected, against tpuslam's on the same features
+    (translations within 1e-3 m, as the trajectories above), and equal to
+    the batch app's own VO on those frames bit for bit."""
+    from tpuslam.dist import multihost as J
+    from tpuslam_torch.dist import multihost as T
+    feats, stamps = _features(runs["tf"])
+    cam = runs["t_odom"].camera
+    ref = J.vo_from_features(feats, stamps, _reference_camera(cam), _cfg())
+    record = []
+    got = T.vo_from_features(feats, stamps, cam,
+                             convert.config_from_reference(_cfg()),
+                             device="cpu", draws_fn=_jax_draws,
+                             record=record)
+    np.testing.assert_allclose(got[:, :3, 3], ref[:, :3, 3], rtol=0,
+                               atol=1e-3)
+    np.testing.assert_array_equal(got, np.stack(runs["got"]["vo_poses"]))
+    assert [i.num_inliers for _, i in record] == \
+        [i.num_inliers for i in runs["ti"]]
+
+
+def _likelihood_recording(pkg_mapper, trace, method):
+    """A subclass of `pkg_mapper` that appends (node id, sorted
+    likelihoods) of every loop-closure query to `trace`."""
+    class Recording(pkg_mapper):
+        pass
+
+    def rec(self, node, ids):
+        lik = getattr(pkg_mapper, method)(self, node, ids)
+        trace.append((node.id, sorted(lik.items())))
+        return lik
+    setattr(Recording, method, rec)
+    return Recording
+
+
+def test_partitioned_mapper_matches_reference(runs):
+    """Two ranks of the port's PartitionedMapper in thread lock-step over
+    the port's run's frames and odometry, tpuslam's draws injected: the
+    same loop closures, node words, links and link transforms as the
+    port's Mapper bit for bit and likelihoods to rtol 1e-12; the same
+    words, owned shards, loop closures and links as tpuslam's
+    PartitionedMapper pair, its loop-closure transforms to registration
+    noise (1e-4, as test_torch_mapping.py holds them)."""
+    import copy
+    from tpuslam.dist.partitioned_map import PartitionedMapper as JPM
+    from tpuslam_torch.dist.partitioned_map import PartitionedMapper
+    from tpuslam_torch.mapping.mapper import Mapper
+    from tpuslam_torch.tools.dist_worker import links_flat, words_flat
+    from test_torch_dist import ThreadComm, in_lockstep
+    stream = list(zip(runs["tf"], runs["ti"]))
+    cam = runs["t_odom"].camera
+    cfg, tcfg = _cfg(), convert.config_from_reference(_cfg())
+
+    sm_trace = []
+    sm = _likelihood_recording(Mapper, sm_trace, "compute_likelihood")(
+        cam, tcfg.mapper, tcfg.matching, tcfg.pnp, device="cpu")
+    sm.draws_fn = _jax_draws
+    for frame, info in stream:
+        sm.process(frame, info)
+    assert sm.loop_closures, "the stream must close a loop"
+
+    traces = [[], []]
+    tcomm, jcomm = ThreadComm(2), ThreadComm(2)
+
+    def ranks(rank):
+        pm = _likelihood_recording(PartitionedMapper, traces[rank],
+                        "_likelihood_allreduce")(
+            cam, tcfg.mapper, tcfg.matching, tcfg.pnp, rank=rank, world=2,
+            comm=tcomm.make(rank), device="cpu")
+        pm.draws_fn = _jax_draws
+        jpm = JPM(_reference_camera(cam), cfg.mapper, cfg.matching,
+                  cfg.pnp, rank=rank, world=2, comm=jcomm.make(rank))
+        for frame, info in stream:
+            pm.process(copy.copy(frame), info)
+        for frame, info in stream:
+            jpm.process(copy.copy(frame), info)
+        return pm, jpm
+
+    (p0, j0), (p1, j1) = in_lockstep(2, ranks)
+    for pm, jpm in ((p0, j0), (p1, j1)):
+        assert pm.loop_closures == sm.loop_closures == jpm.loop_closures
+        np.testing.assert_array_equal(words_flat(pm), words_flat(sm))
+        np.testing.assert_array_equal(words_flat(pm), words_flat(jpm))
+        assert set(pm.vwd.words) == set(jpm.vwd.words)
+        assert len(pm.vwd) == len(jpm.vwd) == len(sm.vwd)
+        for a, b in zip(links_flat(pm), links_flat(sm)):
+            np.testing.assert_array_equal(a, b)
+        (rows, tfs), (jrows, jtfs) = links_flat(pm), links_flat(jpm)
+        np.testing.assert_array_equal(rows, jrows)
+        np.testing.assert_allclose(tfs, jtfs, rtol=0, atol=1e-4)
+    assert not set(p0.vwd.words) & set(p1.vwd.words)
+    assert traces[0] == traces[1] and traces[0]
+    assert [n for n, _ in traces[0]] == [n for n, _ in sm_trace]
+    for (_, a), (_, b) in zip(traces[0], sm_trace):
+        assert [c for c, _ in a] == [c for c, _ in b]
+        np.testing.assert_allclose([v for _, v in a], [v for _, v in b],
+                                   rtol=1e-12, atol=1e-14)
+
+
 # --- checkpoints, resume and the replay -----------------------------------
 
 def _frame_state(f):

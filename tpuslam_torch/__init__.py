@@ -29,10 +29,13 @@ Layer map:
                 frame-timing twin
   calib       — chessboard detection and stereo calibration (LM on the
                 device), YAML output
-  dist        — the per-frame device front end (frontend_one)
-  cli         — the batch and realtime SLAM apps, the pose-graph replay
-                and the tool apps (kernel_test, hw_test, stereo_calib,
-                stereo_capture)
+  dist        — the multi-device layer on torch.distributed: the mesh
+                and its sharded steps (front end, pose graph, BA,
+                dictionary), the multi-process VO and the rank-partitioned
+                map
+  cli         — the batch, realtime and multi-process SLAM apps, the
+                pose-graph replay and the tool apps (kernel_test, hw_test,
+                stereo_calib, stereo_capture)
   csrc        — the CUDA C++ sources, built at first use by nvcc
 """
 

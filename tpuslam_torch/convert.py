@@ -64,10 +64,9 @@ def carry_from_reference(carry_np: dict, device="cuda") -> dict:
         device=device, dtype=dt) for k, dt in CARRY_DTYPES.items()}
 
 
-def dictionary_from_reference(vwd, device="cuda") -> VWDictionary:
-    """tpuslam VWDictionary -> the port's: train rows, row word ids, count,
-    last word id and every word with its references."""
-    out = VWDictionary(vwd.nndr, device)
+def _copy_words(vwd, out):
+    """Train rows, row word ids, count, capacity, last word id and every
+    word with its references, from tpuslam's dictionary `vwd` into `out`."""
     out._capacity = int(vwd._capacity)
     out._train = np.array(vwd._train, np.float32)
     out._word_ids = np.array(vwd._word_ids, np.int64)
@@ -79,6 +78,24 @@ def dictionary_from_reference(vwd, device="cuda") -> VWDictionary:
         vw.total_references = int(w.total_references)
         out.words[int(wid)] = vw
     return out
+
+
+def dictionary_from_reference(vwd, device="cuda") -> VWDictionary:
+    """tpuslam VWDictionary -> the port's: train rows, row word ids, count,
+    last word id and every word with its references."""
+    return _copy_words(vwd, VWDictionary(vwd.nndr, device))
+
+
+def sharded_dictionary_from_reference(vwd, device="cuda", comm=None):
+    """One rank's tpuslam ShardedVWDictionary -> the port's: its owned
+    rows, their word ids and words with their references, and the global
+    counters (last word id, total words), for the same rank and world;
+    `comm` is the port's all-gather (None: the default)."""
+    from .dist.partitioned_map import ShardedVWDictionary
+    out = ShardedVWDictionary(vwd.nndr, int(vwd.rank), int(vwd.world),
+                              comm=comm, device=device)
+    out._total_words = int(vwd._total_words)
+    return _copy_words(vwd, out)
 
 
 def graph_from_reference(poses: dict, links) -> tuple[dict, MultiMap]:

@@ -19,7 +19,9 @@ tpuslam's photo mode does: real image statistics in the end-to-end
 evidence chain.
 
 `pnp_scene` makes the known-pose refinement inputs that the card-only
-tests and chip_smoke.py hold the LM-refine kernel to.
+tests and chip_smoke.py hold the LM-refine kernel to, and
+`noisy_circuit` / `exact_closure` the noisy pose graphs that they hold
+the back end and the sharded pose-graph steps to.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from ..geometry import transform as T
 from ..geometry.camera import StereoCameraModel
+from ..mapping.graph import LOOP_CLOSURE, NEIGHBOR, Link, MultiMap
 
 _M32 = 0xFFFFFFFF
 
@@ -429,6 +432,55 @@ def pnp_scene(rng: np.random.Generator, n: int, K: np.ndarray, rvec0=None,
     args = (pts.astype(np.float32), img.astype(np.float32), w, w > 0, K,
             np.asarray(r0, np.float32), (tv + 0.3).astype(np.float32))
     return [torch.as_tensor(a, device=device) for a in args], rv, tv
+
+
+def se3_noise(rng: np.random.Generator, t_scale: float,
+              r_scale: float) -> np.ndarray:
+    """A random 4x4 rigid motion (f64): a rotation vector ~ N(0, r_scale)
+    per axis, a translation ~ N(0, t_scale) per axis (the JAX suite's
+    tests/test_optim.py rand_se3)."""
+    rvec = rng.normal(0, r_scale, 3)
+    angle = np.linalg.norm(rvec)
+    m = np.eye(4)
+    if angle > 1e-12:
+        k = rvec / angle
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        m[:3, :3] = np.eye(3) + np.sin(angle) * K + \
+            (1 - np.cos(angle)) * (K @ K)
+    m[:3, 3] = rng.normal(0, t_scale, 3)
+    return m
+
+
+def noisy_circuit(n: int, lap: int, rng: np.random.Generator):
+    """A pose graph of `n` poses driving a circuit of `lap` poses 1 m
+    apart (yawing 2 pi / lap per pose), laps repeated, with odometry
+    noise as the JAX suite's make_noisy_loop (0.05 m and 0.01 rad per
+    axis, Omega = 100 I): ground truth (n, 4, 4) f64, the noisy poses
+    {node id: 4x4 f32} (ids 1..n) and the MultiMap of NEIGHBOR links.
+    Loop closures are added with `exact_closure`."""
+    a = 2 * np.pi / lap
+    step = np.eye(4)
+    step[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                    [-np.sin(a), 0, np.cos(a)]]
+    step[:3, 3] = [0, 0, 1.0]
+    gt = [np.eye(4)]
+    for _ in range(n - 1):
+        gt.append(gt[-1] @ step)
+    poses, links, cur = {1: gt[0].astype(np.float32)}, MultiMap(), gt[0]
+    for i in range(1, n):
+        meas = np.linalg.inv(gt[i - 1]) @ gt[i] @ se3_noise(rng, 0.05, 0.01)
+        cur = cur @ meas
+        poses[i + 1] = cur.astype(np.float32)
+        links.insert(i, Link(i, i + 1, NEIGHBOR, meas.astype(np.float32),
+                             np.eye(6) * 100.0))
+    return np.stack(gt), poses, links
+
+
+def exact_closure(links, gt: np.ndarray, i: int, j: int):
+    """Add to `links` an exact loop closure from pose i to pose j (0-based
+    indices into `gt`; node ids i + 1 -> j + 1), Omega = 100 I."""
+    links.insert(i + 1, Link(i + 1, j + 1, LOOP_CLOSURE, (
+        np.linalg.inv(gt[i]) @ gt[j]).astype(np.float32), np.eye(6) * 100.0))
 
 
 def sequence_camera(width: int, height: int, f: float,

@@ -14,11 +14,12 @@ main path does not run: the K1 phase harness of
 tpuslam_torch/tools/probe_bm_parts.py, and K3's two halves alone
 (`orb_blur`, `orb_tests`), whose plain twins are the two halves of K3's
 (counted as K3's plain version when it runs them).  The blur alone runs
-on the tool apps' path: dist/mesh.py's frontend_one, which the hardware
-self-test drives.
+on the tool apps' path and the multi-device front end: dist/mesh.py's
+frontend_one, which the hardware self-test drives, and
+sharded_frontend_step.
 BACKEND are the kernels of the pose graph's device back end
-(optim/device.py), which only `backend="device"` runs: K7, the
-block-Thomas solve (`thomas`).
+(optim/device.py), which only `backend="device"` and dist/mesh.py's
+sharded sparse step run: K7, the block-Thomas solve (`thomas`).
 
 Counters: every kernel wrapper adds one to LAUNCHES[name] where it launches
 its kernel; every plain PyTorch twin adds one to PLAIN_CALLS[name].  A run

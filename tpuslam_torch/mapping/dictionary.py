@@ -124,6 +124,23 @@ class VWDictionary:
                                               device=self.device).clone()
             self._dev_dirty = False
 
+    def _store_row(self, wid: int, row: np.ndarray):
+        """Append word `wid`'s f32 descriptor row to the host word matrix."""
+        if self._count >= self._capacity:
+            self._grow(self._count + 1)
+        self._train[self._count] = row
+        self._word_ids[self._count] = wid
+        self._count += 1
+
+    def _mirror_rows(self, old_count: int):
+        """Mirror the rows stored since `old_count` to the device (a full
+        re-upload only after a capacity growth)."""
+        if self._count > old_count and not self._dev_dirty and \
+                self._train_dev is not None:
+            _append_rows(self._train_dev, torch.as_tensor(
+                self._train[old_count:self._count], device=self.device),
+                old_count)
+
     def add_new_words(self, descriptors: np.ndarray,
                       node_id: int) -> list[int]:
         """addNewWords twin: returns the word id assigned to each
@@ -151,26 +168,15 @@ class VWDictionary:
             if unique:
                 wid = self._last_word_id
                 self._last_word_id += 1
-                vw = VisualWord(wid, descriptors[k].copy(), node_id)
-                self.words[wid] = vw
-                if self._count >= self._capacity:
-                    self._grow(self._count + 1)
-                self._train[self._count] = desc_f[k]
-                self._word_ids[self._count] = wid
-                self._count += 1
+                self.words[wid] = VisualWord(wid, descriptors[k].copy(),
+                                             node_id)
+                self._store_row(wid, desc_f[k])
                 word_ids.append(wid)
             else:
                 wid = int(self._word_ids[int(i1[k])])
                 self.words[wid].add_ref(node_id)
                 word_ids.append(wid)
-
-        # mirror the new rows to the device (a full re-upload only after
-        # a capacity growth)
-        if self._count > old_count and not self._dev_dirty and \
-                self._train_dev is not None:
-            _append_rows(self._train_dev, torch.as_tensor(
-                self._train[old_count:self._count], device=self.device),
-                old_count)
+        self._mirror_rows(old_count)
         return word_ids
 
     def apply_precomputed(self, descriptors: np.ndarray, node_id: int,

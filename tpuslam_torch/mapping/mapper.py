@@ -39,6 +39,11 @@ from .graph import Link, MultiMap, Node, NEIGHBOR, LOOP_CLOSURE, find_link
 
 
 class Mapper:
+    # the chunked pipeline may precompute dictionary decisions with the
+    # per-chunk device program (mapping/chunk_dict.py); the sharded
+    # dictionary of PartitionedMapper opts out
+    device_dict_ok = True
+
     def __init__(self, camera: StereoCameraModel,
                  cfg: MapperConfig = MapperConfig(),
                  matching_cfg: MatchingConfig = MatchingConfig(),

@@ -293,24 +293,43 @@ def lm_system(poses, e_from, e_to, Z_inv, Z, Omega, n_free, free_idx):
     return A[:size, :size], b, chi2, _max_diag(m_ii, m_jj, mi, mj)
 
 
-def _lm_update(poses, x, b, chi2_before, lam, e_from, e_to, Z_inv, Omega,
-               n_free, free_idx, lower_step, upper_step):
-    """Apply the step x, then the gain-ratio lambda rescale
-    (scaleLambda, HyperGraph.cpp:118-135) -> (poses, lambda, chi2 after)."""
+def _apply_step(poses, x, free_idx, n_free):
+    """The (6n,) step x applied to the free vertices (fixed ones keep
+    their pose)."""
     upd = x.reshape(n_free, 6)
     full_upd = torch.where((free_idx >= 0)[:, None],
                            upd[torch.clamp(free_idx, min=0)], 0.0)
-    new_poses = _oplus_batch(poses, full_upd)
+    return _oplus_batch(poses, full_upd)
 
-    err_after = edge_errors(Z_inv, new_poses[e_from], new_poses[e_to])
-    chi2_after = torch.einsum("ei,eij,ej->", err_after, Omega, err_after)
 
+def _scale_lambda(x, b, lam, chi2_before, chi2_after, lower_step,
+                  upper_step):
+    """The gain-ratio lambda rescale (scaleLambda, HyperGraph.cpp:118-135)."""
     scale = x @ (lam * x + b) + 1e-3
     rho = (chi2_before - chi2_after) / scale
     alpha = 1.0 - (2.0 * rho - 1.0) ** 3
     alpha = torch.clamp(alpha, max=upper_step)
-    lam = lam * torch.clamp(alpha, min=lower_step)
-    return new_poses, lam, chi2_after
+    return lam * torch.clamp(alpha, min=lower_step)
+
+
+def _lm_update(poses, x, b, chi2_before, lam, e_from, e_to, Z_inv, Omega,
+               n_free, free_idx, lower_step, upper_step):
+    """Apply the step x, then the gain-ratio lambda rescale
+    -> (poses, lambda, chi2 after)."""
+    new_poses = _apply_step(poses, x, free_idx, n_free)
+    err_after = edge_errors(Z_inv, new_poses[e_from], new_poses[e_to])
+    chi2_after = torch.einsum("ei,eij,ej->", err_after, Omega, err_after)
+    return new_poses, _scale_lambda(x, b, lam, chi2_before, chi2_after,
+                                    lower_step, upper_step), chi2_after
+
+
+def _dense_solve(A, b, lam):
+    """x = (tril(A) + tril(A)^T - diag(A) + lam I)^-1 b: SimplicialLDLT
+    reads the lower triangle of the raw quirk layout only."""
+    L = torch.tril(A)
+    A_eff = L + L.T - torch.diag(torch.diag(A)) + \
+        lam * torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    return torch.linalg.solve(A_eff, b)
 
 
 def _lm_iteration(poses, A, b, chi2_before, lam, e_from, e_to, Z_inv,
@@ -318,13 +337,9 @@ def _lm_iteration(poses, A, b, chi2_before, lam, e_from, e_to, Z_inv,
     """Shared LM update + gain-ratio lambda rescale (HyperGraph.cpp:57-97).
     `A` is the raw quirk layout from lm_system; lam must already be seeded
     (tau * max_diag on the first iteration)."""
-    # SimplicialLDLT reads the lower triangle only
-    L = torch.tril(A)
-    A_eff = L + L.T - torch.diag(torch.diag(A)) + \
-        lam * torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
-    x = torch.linalg.solve(A_eff, b)
-    return _lm_update(poses, x, b, chi2_before, lam, e_from, e_to, Z_inv,
-                      Omega, n_free, free_idx, lower_step, upper_step)
+    return _lm_update(poses, _dense_solve(A, b, lam), b, chi2_before, lam,
+                      e_from, e_to, Z_inv, Omega, n_free, free_idx,
+                      lower_step, upper_step)
 
 
 def _stack(chis, like):
@@ -654,10 +669,6 @@ def gn_solve(poses, e_from, e_to, Z, Omega, free_idx, n_free,
                                          Omega, n_free, free_idx)
         Hd = H + lam * torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
         x = torch.cholesky_solve(b[:, None], torch.linalg.cholesky(Hd))[:, 0]
-        upd = x.reshape(n_free, 6)
-        # gather per-vertex updates (fixed vertices get zero)
-        full_upd = torch.where((free_idx >= 0)[:, None],
-                               upd[torch.clamp(free_idx, min=0)], 0.0)
-        poses = _oplus_batch(poses, full_upd)
+        poses = _apply_step(poses, x, free_idx, n_free)
         chis.append(chi2)
     return poses, _stack(chis, poses)

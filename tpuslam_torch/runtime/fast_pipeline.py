@@ -103,7 +103,11 @@ class FastSlamPipeline:
         if mapper is None:
             return
         mapper.device = self.device
-        if not self.device_dict:
+        # the per-chunk device dictionary is the single-process
+        # dictionary's: a mapper that searches its own (PartitionedMapper,
+        # rank-sharded) opts out with device_dict_ok = False
+        if not self.device_dict or \
+                not getattr(mapper, "device_dict_ok", False):
             return
         from ..mapping.chunk_dict import ChunkDictDriver
         driver = ChunkDictDriver(self.cfg.mapper.dict_nndr,
