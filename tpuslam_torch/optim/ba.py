@@ -5,8 +5,9 @@ observations of L landmarks from W cameras, masked validity), analytic
 per-observation Jacobians computed for all observations at once (the
 batch dimension written out where tpuslam vmaps), the normal equations
 assembled as dense camera and camera-landmark blocks by segment sums
-(`index_add_`), landmarks eliminated by the Schur complement (H_ll is
-(L, 3, 3) block-diagonal, inverted in closed form), and the reduced
+(optim/segment.py, in observation order on every device), landmarks
+eliminated by the Schur complement (H_ll is (L, 3, 3) block-diagonal,
+inverted in closed form), and the reduced
 camera system solved by torch.linalg.solve (tpuslam solves it outside any
 Pallas kernel too).  All f32, on the tensors' device.
 
@@ -16,6 +17,8 @@ Gauge: the first `n_fixed` cameras are held fixed.
 from __future__ import annotations
 
 import torch
+
+from .segment import segment_sum as _segment_sum
 
 
 def project(Tcw: torch.Tensor, X: torch.Tensor, intr: torch.Tensor):
@@ -55,11 +58,6 @@ def _huber_w(r2, delta):
     """Huber IRLS weight for a squared residual norm."""
     rn = torch.sqrt(r2 + 1e-12)
     return torch.where(rn <= delta, 1.0, delta / rn)
-
-
-def _segment_sum(x, idx, n):
-    return torch.zeros((n,) + x.shape[1:], dtype=x.dtype,
-                       device=x.device).index_add_(0, idx, x)
 
 
 def ba_normal_equations(Tcw, lms, intr, obs_cam, obs_lm, obs_uv,

@@ -22,9 +22,10 @@ lambda seeded as tau * max_diag on iteration 0; each solver returns the
 per-iteration chi2.  The block-Thomas recursion is serial in the vertex
 index: `thomas_solve` sends a CUDA tensor to kernel K7
 (csrc/thomas.cu) and a CPU tensor to the plain `_thomas_solve`, whose
-element ops cost ~325 launches per vertex on the card.  Scatter-adds
-(`index_add_`) use atomics on the card, so sums there may be taken in
-another order from run to run.
+element ops cost ~325 launches per vertex on the card.  Every sum of
+the assembly goes through `segment.segment_sum`, which adds each
+destination's terms in edge order on both devices, so a run on the card
+repeats bit for bit.
 
 graph_to_arrays and classify_extra_edges are numpy-only, copied from
 tpuslam (tests/test_torch_config.py keeps them equal).
@@ -35,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import _cuda
+from .segment import segment_sum
 
 
 def _quat_xyz(R):
@@ -207,28 +209,27 @@ def _edge_terms(poses, e_from, e_to, Z_inv, Z, Omega):
 
 
 def _gradient(fi, fj, mi, mj, bi, bj, n_free):
-    """b (6n,): bi at the from vertices, bj at the to vertices; masked
-    edges land on a dump block sliced off."""
-    size = n_free * 6
-    six = torch.arange(6, device=bi.device)
-    b_pad = torch.zeros((size + 6,), dtype=bi.dtype, device=bi.device)
-    b_pad.index_add_(0, (torch.where(mi, fi, n_free)[:, None] * 6 +
-                         six[None, :]).reshape(-1), bi.reshape(-1))
-    b_pad.index_add_(0, (torch.where(mj, fj, n_free)[:, None] * 6 +
-                         six[None, :]).reshape(-1), bj.reshape(-1))
-    return b_pad[:size]
+    """b (6n,): bi at the from vertices, then bj at the to vertices;
+    masked edges land on a dump block sliced off."""
+    dest = torch.cat([torch.where(mi, fi, n_free),
+                      torch.where(mj, fj, n_free)])
+    return segment_sum(torch.cat([bi, bj]), dest,
+                       n_free + 1)[:n_free].reshape(-1)
 
 
-def _scatter_blocks(A_pad, fi, fj, blocks, mask, n_free):
-    """Scatter-add (E,6,6) blocks at block positions (fi, fj) of the
-    padded (6n+6, 6n+6) A_pad, in place (tpuslam builds a padded copy per
-    call); masked edges land on the dump row and column sliced off."""
-    width = A_pad.shape[1]
-    six = torch.arange(6, device=A_pad.device)
-    rows = torch.where(mask, fi, n_free)[:, None] * 6 + six[None, :]
-    cols = torch.where(mask, fj, n_free)[:, None] * 6 + six[None, :]
-    flat = rows[:, :, None] * width + cols[:, None, :]
-    A_pad.view(-1).index_add_(0, flat.reshape(-1), blocks.reshape(-1))
+def _block_matrix(parts, n_free):
+    """The (6n, 6n) sum of the (E,6,6) blocks of each part (fi, fj,
+    blocks, mask) at block positions (fi, fj), the parts' blocks added in
+    order; masked edges land on a dump block sliced off (tpuslam builds a
+    padded copy per call)."""
+    w = n_free + 1
+    dest = torch.cat([torch.where(mask, fi, n_free) * w +
+                      torch.where(mask, fj, n_free)
+                      for fi, fj, _, mask in parts])
+    A = segment_sum(torch.cat([blocks for _, _, blocks, _ in parts]),
+                    dest, w * w)
+    A = A.reshape(w, w, 6, 6).permute(0, 2, 1, 3).reshape(6 * w, 6 * w)
+    return A[:6 * n_free, :6 * n_free]
 
 
 def _max_diag(m_ii, m_jj, mi, mj):
@@ -249,18 +250,14 @@ def gn_normal_equations(poses, e_from, e_to, Z_inv, Z, Omega, n_free,
     fj = free_idx[e_to]
     mi = fi >= 0
     mj = fj >= 0
-    size = n_free * 6
     b = _gradient(fi, fj, mi, mj, bi, bj, n_free)
 
     # symmetric full H (the device path solves the true normal equations;
     # the host path reproduces the reference's lower-triangle quirk)
-    H = torch.zeros((size + 6, size + 6), dtype=poses.dtype,
-                    device=poses.device)
-    _scatter_blocks(H, fi, fi, H_ii, mi, n_free)
-    _scatter_blocks(H, fj, fj, H_jj, mj, n_free)
-    _scatter_blocks(H, fi, fj, H_ij, mi & mj, n_free)
-    _scatter_blocks(H, fj, fi, H_ij.transpose(1, 2), mi & mj, n_free)
-    return H[:size, :size], b, chi2
+    H = _block_matrix([(fi, fi, H_ii, mi), (fj, fj, H_jj, mj),
+                       (fi, fj, H_ij, mi & mj),
+                       (fj, fi, H_ij.transpose(1, 2), mi & mj)], n_free)
+    return H, b, chi2
 
 
 def lm_system(poses, e_from, e_to, Z_inv, Z, Omega, n_free, free_idx):
@@ -282,15 +279,11 @@ def lm_system(poses, e_from, e_to, Z_inv, Z, Omega, n_free, free_idx):
     fj = free_idx[e_to]
     mi = fi >= 0
     mj = fj >= 0
-    size = n_free * 6
     b = _gradient(fi, fj, mi, mj, bi, bj, n_free)
-
-    A = torch.zeros((size + 6, size + 6), dtype=poses.dtype,
-                    device=poses.device)
-    _scatter_blocks(A, fi, fi, m_ii.transpose(1, 2), mi, n_free)
-    _scatter_blocks(A, fj, fj, m_jj.transpose(1, 2), mj, n_free)
-    _scatter_blocks(A, fj, fi, m_ij.transpose(1, 2), mi & mj, n_free)
-    return A[:size, :size], b, chi2, _max_diag(m_ii, m_jj, mi, mj)
+    A = _block_matrix([(fi, fi, m_ii.transpose(1, 2), mi),
+                       (fj, fj, m_jj.transpose(1, 2), mj),
+                       (fj, fi, m_ij.transpose(1, 2), mi & mj)], n_free)
+    return A, b, chi2, _max_diag(m_ii, m_jj, mi, mj)
 
 
 def _apply_step(poses, x, free_idx, n_free):
@@ -448,24 +441,21 @@ def sparse_system(poses, e_from, e_to, Z_inv, Z, Omega, n_free, free_idx,
         L = torch.tril(B)
         return L + L.transpose(-1, -2) - B * eye6
 
-    D = torch.zeros((n_free + 1, 6, 6), dtype=dt, device=dev)
-    D.index_add_(0, torch.where(mi, fi, n_free),
-                 tril_sym(m_ii.transpose(1, 2)))
-    D.index_add_(0, torch.where(mj, fj, n_free),
-                 tril_sym(m_jj.transpose(1, 2)))
+    D = segment_sum(torch.cat([tril_sym(m_ii.transpose(1, 2)),
+                               tril_sym(m_jj.transpose(1, 2))]),
+                    torch.cat([torch.where(mi, fi, n_free),
+                               torch.where(mj, fj, n_free)]), n_free + 1)
 
     # off-diagonal: ONE block per edge at (fj, fi), value m_ij^T, kept
     # iff fj > fi (lower triangle); fj == fi + 1 -> sub-diagonal slot
     B_e = m_ij.transpose(1, 2)
     keep = mi & mj & (fj > fi)
     sub = keep & (fj == fi + 1)
-    S = torch.zeros((n_sub + 1, 6, 6), dtype=dt, device=dev)
-    S.index_add_(0, torch.where(sub, fi, n_sub), B_e)
+    S = segment_sum(B_e, torch.where(sub, fi, n_sub), n_sub + 1)
 
     R = xp.shape[0]
-    X = torch.zeros((R + 1, 6, 6), dtype=dt, device=dev)
     is_x = keep & (xsel >= 0)
-    X.index_add_(0, torch.where(is_x, xsel, R), B_e)
+    X = segment_sum(B_e, torch.where(is_x, xsel, R), R + 1)
 
     b = _gradient(fi, fj, mi, mj, bi, bj, n_free)
     return (D[:n_free], S[:n_sub], X[:R], b, chi2,
