@@ -144,17 +144,120 @@ def test_png_encode_read_by_pillow(tmp_path, shape):
     assert png.image_size(path) == (shape[1], shape[0])
 
 
-# Pillow mode and shape of each colour type that the decoder reads
+# Pillow mode and shape of each 8-bit colour type that Pillow writes
 COLOUR_KINDS = {"rgb": ("RGB", (5, 7, 3)), "rgba": ("RGBA", (5, 7, 4)),
                 "gray_alpha": ("LA", (5, 7, 2))}
 
 
+def _filter_bytes(rows: np.ndarray, bpp: int, first: int) -> bytes:
+    """Filter each (stride,) byte row of `rows` as an encoder does, row y
+    under filter (first + y) % 5, `bpp` bytes to the left pixel."""
+    out = bytearray()
+    prior = np.zeros(rows.shape[1], np.int64)
+    for y, row in enumerate(rows.astype(np.int64)):
+        kind = (first + y) % 5
+        a = np.concatenate([np.zeros(bpp, np.int64), row[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])
+        b = prior
+        if kind == 4:
+            p = a + b - c
+            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, b, c))
+        else:
+            pred = [0 * a, a, b, (a + b) // 2][kind]
+        out += bytes([kind]) + ((row - pred) & 255).astype(np.uint8) \
+            .tobytes()
+        prior = row
+    return bytes(out)
+
+
+def _pack(s: np.ndarray, depth: int) -> np.ndarray:
+    """(h, w, ch) samples -> (h, stride) bytes at `depth` bits."""
+    h = s.shape[0]
+    flat = s.reshape(h, -1).astype(np.uint32)
+    if depth == 16:
+        return flat.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return flat.astype(np.uint8)
+    per = 8 // depth
+    n = -(-flat.shape[1] // per) * per
+    flat = np.pad(flat, ((0, 0), (0, n - flat.shape[1])))
+    shifts = np.arange(8 - depth, -1, -depth)
+    return (flat.reshape(h, -1, per) << shifts).sum(-1).astype(np.uint8)
+
+
+def _png_kind(s, depth, colour, interlace=False, plte=None, trns=None):
+    """A PNG file of samples s (h, w, ch) at `depth` bits and colour type
+    `colour`, its rows under all five filters, Adam7-interlaced if asked
+    (Pillow writes no interlaced PNG)."""
+    h, w, ch = s.shape
+    bpp = max(1, ch * depth // 8)
+    passes = png.ADAM7 if interlace else ((0, 0, 1, 1),)
+    body = b""
+    for i, (x0, y0, dx, dy) in enumerate(passes):
+        sub = s[y0::dy, x0::dx]
+        if sub.size:
+            body += _filter_bytes(_pack(sub, depth), bpp, i)
+    data = png.SIGNATURE + png._chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, colour, 0, 0, int(interlace)))
+    if plte is not None:
+        data += png._chunk(b"PLTE", plte)
+    if trns is not None:
+        data += png._chunk(b"tRNS", trns)
+    return (data + png._chunk(b"IDAT", zlib.compress(body)) +
+            png._chunk(b"IEND", b""))
+
+
+def _made_kind(case):
+    """(file bytes, samples) of a hand-made case: name = kind, bit depth
+    and options, e.g. gray2, rgb16, palette4_trns, adam7_rgba8_13x11."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    parts = case.split("_")
+    interlace = parts[0] == "adam7"
+    if interlace:
+        parts = parts[1:]
+    h, w = (5, 7)
+    if "x" in parts[-1]:
+        w, h = map(int, parts.pop().split("x"))
+    trns = parts[-1] == "trns"
+    name = parts[0].rstrip("0123456789")
+    depth = int(parts[0][len(name):])
+    colour = {"gray": 0, "rgb": 2, "palette": 3, "grayalpha": 4,
+              "rgba": 6}[name]
+    s = rng.integers(0, 1 << depth, (h, w, png.CHANNELS[colour]))
+    if depth == 16:         # values below 256 too, where 16 -> 8 bits differ
+        s[::2] >>= 8
+    plte = t = None
+    if colour == 3:         # fewer entries than indices: the rest black
+        n = max(1, (1 << depth) - 1)
+        plte = rng.integers(0, 256, 3 * n).astype(np.uint8).tobytes()
+        if trns:
+            t = rng.integers(0, 256, n).astype(np.uint8).tobytes()
+    elif trns:
+        t = struct.pack(">" + "H" * (3 if colour == 2 else 1),
+                        *s[0, 0, :3 if colour == 2 else 1].tolist())
+    return _png_kind(s, depth, colour, interlace, plte, t), s
+
+
+MADE_KINDS = ["gray1", "gray2", "gray4", "gray8_trns", "gray16_trns",
+              "rgb16", "rgb8_trns", "rgb16_trns", "grayalpha16", "rgba16",
+              "palette1", "palette2", "palette4", "palette8_trns",
+              "adam7_gray8_13x11", "adam7_gray1_1x1", "adam7_rgb16_3x2",
+              "adam7_palette2_9x10", "adam7_rgba8_5x5",
+              "adam7_grayalpha8_8x8", "adam7_gray16_trns_6x1"]
+
+
 @pytest.mark.parametrize("case", ["rgb", "rgba", "gray_alpha", "16bit",
-                                  "interlaced", "palette"])
-def test_png_refuses_other_kinds(case):
-    """8-bit colour types 2, 6 and 4 decode to Pillow's channels, and
-    `luma` gives Pillow's convert("L"); 16-bit, interlaced and palette
-    files still raise NotImplementedError, from the header alone."""
+                                  "interlaced", "palette", *MADE_KINDS])
+def test_png_refuses_other_kinds(tmp_path, case):
+    """Every PNG kind (bit depths 1-16, gray, RGB, palette with and
+    without tRNS, gray+alpha, RGBA, Adam7) reads as Pillow reads it:
+    `gray` and load_gray equal Pillow's convert("L") and tpuslam's
+    load_gray; `decode` gives the samples (Pillow's channels for the 8-bit
+    colour types it writes).  These kinds were once refused."""
+    from tpuslam.io.dataset import load_gray as ref_load_gray
+    from tpuslam_torch.io.dataset import load_gray
     buf = io.BytesIO()
     if case in COLOUR_KINDS:
         mode, shape = COLOUR_KINDS[case]
@@ -162,25 +265,46 @@ def test_png_refuses_other_kinds(case):
             0, 256, shape).astype(np.uint8)
         Image.fromarray(img, mode).save(buf, format="PNG")
         data = buf.getvalue()
-        got = png.decode(data)
-        np.testing.assert_array_equal(got, img)
-        np.testing.assert_array_equal(
-            png.luma(got),
-            np.asarray(Image.open(io.BytesIO(data)).convert("L")))
+        np.testing.assert_array_equal(png.decode(data), img)
+        np.testing.assert_array_equal(png.luma(png.decode(data)),
+                                      png.gray(data))
         assert png._header(data) == (7, 5)
-        return
-    if case == "16bit":
-        Image.fromarray(np.zeros((2, 3), np.uint16)).save(buf, format="PNG")
+    elif case == "16bit":
+        img = np.random.default_rng(16).integers(0, 1 << 16, (6, 9)) \
+            .astype(np.uint16)
+        img[::2] >>= 8
+        Image.fromarray(img).save(buf, format="PNG")
         data = buf.getvalue()
+        assert Image.open(io.BytesIO(data)).mode == "I;16"
+        np.testing.assert_array_equal(png.decode(data), img)
     elif case == "palette":
-        Image.fromarray(np.zeros((2, 3), np.uint8)).convert("P").save(
-            buf, format="PNG")
+        rgb = np.random.default_rng(3).integers(0, 256, (6, 9, 3)) \
+            .astype(np.uint8)
+        Image.fromarray(rgb).convert("P").save(buf, format="PNG")
         data = buf.getvalue()
-    else:           # Pillow writes no interlaced PNG: an Adam7 header
-        data = png.SIGNATURE + png._chunk(
-            b"IHDR", struct.pack(">IIBBBBB", 3, 2, 8, 0, 0, 0, 1))
-    with pytest.raises(NotImplementedError, match="not interlaced"):
-        png.decode(data)
+        assert Image.open(io.BytesIO(data)).mode == "P"
+        np.testing.assert_array_equal(
+            png.decode(data), np.asarray(Image.open(io.BytesIO(data))))
+    elif case == "interlaced":      # Pillow writes no interlaced PNG
+        img = np.random.default_rng(7).integers(0, 256, (11, 13, 1))
+        data = _png_kind(img, 8, 0, interlace=True)
+        np.testing.assert_array_equal(png.decode(data), img[..., 0])
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(io.BytesIO(data))), img[..., 0])
+    else:
+        data, s = _made_kind(case)
+        got = png.decode(data)
+        np.testing.assert_array_equal(got, s[..., 0] if s.shape[2] == 1
+                                      else s)
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("L"))
+    np.testing.assert_array_equal(png.gray(data), want)
+    path = str(tmp_path / "x.png")
+    with open(path, "wb") as f:
+        f.write(data)
+    got = load_gray(path)
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, ref_load_gray(path))
+    np.testing.assert_array_equal(got, want)
 
 
 POSES_KW = dict(width=160, height=120, f=150.0, baseline=0.54, seed=5)

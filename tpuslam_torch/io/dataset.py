@@ -6,10 +6,10 @@ length-then-ASCII comparator, the stereo pair + timestamp + ground-truth
 reader, KITTI ground-truth import with the optical-frame conjugation, and
 the poses/links CSV save/load used for optimizer stage replay.  The text
 code is tpuslam's.  Images are read without Pillow: `load_gray` gives what
-Pillow's convert("L") gives (gray PNGs and PGMs through the native decoder,
-colour PNGs through io/png.py and Pillow's luma) and resizes as Pillow does
-(io/resize.py); `prefetch_iter` decodes ahead through the native
-double-banked loader (io/native_loader.py), as tpuslam's does.
+Pillow's convert("L") gives (8-bit gray PNGs and PGMs through the native
+decoder, every other PNG through io/png.py's `gray`) and resizes as
+Pillow does (io/resize.py); `prefetch_iter` decodes ahead through the
+native double-banked loader (io/native_loader.py), as tpuslam's does.
 """
 
 from __future__ import annotations
@@ -43,15 +43,15 @@ def list_images(path: str) -> list[str]:
 
 def load_gray(path: str, do_resize: bool = False) -> np.ndarray:
     """Grayscale image load (CameraStereoImages.cpp:120-132), equal to
-    tpuslam's Pillow `open(path).convert("L")`: gray PNGs and binary PGMs
-    through the native decoder, PNGs of colour types 2/4/6 through
-    io/png.py and Pillow's luma; 16-bit, interlaced and palette PNGs raise
-    NotImplementedError.  `do_resize` resizes to 640x480 as tpuslam does,
-    with Pillow's bilinear filter."""
+    tpuslam's Pillow `open(path).convert("L")`: 8-bit non-interlaced gray
+    PNGs and binary PGMs through the native decoder, every other PNG (bit
+    depths 1-16, colour and palette types, Adam7) through io/png.py's
+    `gray`, with Pillow's rules.  `do_resize` resizes to 640x480 as
+    tpuslam does, with Pillow's bilinear filter."""
     with open(path, "rb") as f:
         head = f.read(64)
-    if head.startswith(png.SIGNATURE) and png.layout(head)[2] != 1:
-        img = png.luma(png.read_png(path))
+    if head.startswith(png.SIGNATURE) and png.header(head)[2:] != (8, 0, 0):
+        img = png.read_gray(path)
     else:
         img = decode_image(path)
     if do_resize:
