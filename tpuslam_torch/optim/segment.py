@@ -25,6 +25,12 @@ import torch
 def segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """(n, *x.shape[1:]) sums of the rows x[e] into row idx[e], each row's
     terms added in the order of e from zero, on x's device."""
+    if x.shape[1:].numel() == 1:
+        # a row of one value would take index_put_'s kernel for single
+        # values, which adds long runs by a tree: give each a zero beside
+        flat = x.reshape(-1)
+        return segment_sum(torch.stack([flat, torch.zeros_like(flat)], 1),
+                           idx, n)[:, 0].reshape((n,) + tuple(x.shape[1:]))
     out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     if x.is_cuda:
