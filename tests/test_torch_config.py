@@ -381,14 +381,12 @@ def test_shape_sweep_refuses(monkeypatch, argv, match):
 
 def test_kernel_table_names_every_kernel():
     """Every launcher has a signature, counters and a source; the phase
-    harness is a tool in K1's file, K3's two halves tools in K3's and K7's
-    forward-pass cut a tool in K7's, not kernels of the main path; K7 is
-    the pose graph's device back end's own group, built like the rest and
-    with FMA contraction off."""
+    harness is a tool in K1's file and K3's two halves tools in K3's, not
+    kernels of the main path; K7 is the pose graph's device back end's own
+    group, built like the rest and with FMA contraction off."""
     from tpuslam_torch.kernels import _cuda
     assert list(_cuda.KERNELS) == KERNELS
-    assert list(_cuda.TOOLS) == ["stereo_bm_phase", "orb_blur", "orb_tests",
-                                 "thomas_stage"]
+    assert list(_cuda.TOOLS) == ["stereo_bm_phase", "orb_blur", "orb_tests"]
     assert list(_cuda.BACKEND) == BACKEND
     names = KERNELS + list(_cuda.TOOLS) + BACKEND
     assert list(_cuda.ALL) == names
@@ -397,7 +395,6 @@ def test_kernel_table_names_every_kernel():
     assert set(_cuda.LAUNCHES) == set(_cuda.PLAIN_CALLS) == set(names)
     assert _cuda.source("stereo_bm_phase") == "stereo_bm"
     assert _cuda.source("orb_blur") == _cuda.source("orb_tests") == "orb"
-    assert _cuda.source("thomas_stage") == "thomas"
     for name in names:
         assert os.path.exists(os.path.join(ROOT, "tpuslam_torch", "csrc",
                                            f"{_cuda.source(name)}.cu"))

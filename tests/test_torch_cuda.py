@@ -742,29 +742,39 @@ def _block_tridiagonal(n, m, seed=0):
 
 @pytest.mark.parametrize("n, m", [(2, 1), (2, 13), (61, 1), (61, 13),
                                   (1000, 1), (1000, 13), (61, 37),
-                                  (61, 337)])
+                                  (61, 337), (60, 325), (4540, 13)])
 def test_thomas_kernel(n, m):
-    """K7 equals its plain version on the card within 1e-4 of max|X| (f32;
-    the two take their sums in one order, so it is expected bit for bit),
-    and solves the system; 37 columns take two thread blocks of one
-    launch, and 337 (28 Woodbury extras, about the per-frame graph's 27)
-    ten."""
+    """K7 equals its plain version on the card bit for bit (the two take
+    every sum in one order and divide and take square roots as IEEE
+    does), and solves the system; 37 columns take two column warps of one
+    thread block, 337 (28 Woodbury extras, about the per-frame graph's
+    27) eleven.  (60, 325) and (4540, 13) are the back end's shapes, a
+    right-hand side beside Woodbury extras' unit block-columns
+    (tools/thomas_probe.py random_system): mostly zeros; at 4540 vertices,
+    where the plain version would take minutes, the residual alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from tpuslam_torch.kernels import _cuda
     from tpuslam_torch.optim import device as DEV
-    D, S, B = _block_tridiagonal(n, m, seed=n * 100 + m)
-    lam = torch.tensor(0.25, device="cuda")
+    from tpuslam_torch.tools.thomas_probe import random_system
+    if (n, m) in ((60, 325), (4540, 13)):
+        D, S, B, lam = random_system(n, m, seed=n * 100 + m)
+        lam_f = float(lam)
+    else:
+        D, S, B = _block_tridiagonal(n, m, seed=n * 100 + m)
+        lam, lam_f = torch.tensor(0.25, device="cuda"), 0.25
     _cuda.reset_counters()
     got = DEV.thomas_solve(D, S, B, lam)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["thomas"] == 1
     assert _cuda.PLAIN_CALLS["thomas"] == 0
-    want = DEV._thomas_solve(D, S, B, lam)
-    err = float((got - want).abs().max() / want.abs().max())
-    assert err <= 1e-4, err
+    if n <= 1000:
+        want = DEV._thomas_solve(D, S, B, lam)
+        assert torch.equal(got, want), float((got - want).abs().max())
+        assert torch.equal(torch.signbit(got), torch.signbit(want))
     # the residual of the solve, in f64
-    Dl = D.double() + 0.25 * torch.eye(6, device="cuda", dtype=torch.float64)
+    Dl = D.double() + lam_f * torch.eye(6, device="cuda",
+                                        dtype=torch.float64)
     x = got.double()
     r = torch.einsum("nij,njc->nic", Dl, x) - B.double()
     r[1:] += torch.einsum("nij,njc->nic", S.double(), x[:-1])
@@ -772,18 +782,28 @@ def test_thomas_kernel(n, m):
     assert float(r.abs().max()) < 1e-4 * float(B.abs().max()) * 10
 
 
-def test_robust_device_backend_on_the_card_equals_cpu():
-    """run_optimize_robust(backend="device") on the card: K7 at least once
-    per LM iteration and no plain solve; poses within translations 5e-2
-    and chi2 within 10 % of the same call on the CPU, and the gross loop
-    closure ejected (an 80-vertex noisy loop, as tests/test_dist.py's)."""
+def test_thomas_fast_division():
+    """K7 divides by the fast path of IEEE division without its branch,
+    where the operands' exponents keep every intermediate normal
+    (csrc/thomas.cu div_fast), and elsewhere by fused multiply-adds with
+    the subnormal rounding done by hand (div_small): on 2^24 random
+    pairs, across and beyond that range, subnormals and zeros included,
+    every quotient either takes equals IEEE division bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from tpuslam_torch.geometry.transform import from_rpy_xyz
     from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.tools.thomas_probe import divcheck
+    pairs, within, differ, wide = divcheck(_cuda.library("thomas"))
+    assert differ == 0 and wide == 0
+    assert pairs // 4 < within < pairs
+
+
+def _noisy_loop_80():
+    """An 80-vertex noisy loop with one true loop closure and one gross
+    one (tests/test_dist.py's): (poses, links)."""
+    from tpuslam_torch.geometry.transform import from_rpy_xyz
     from tpuslam_torch.mapping.graph import (Link, MultiMap, NEIGHBOR,
                                              LOOP_CLOSURE)
-    from tpuslam_torch.optim import pose_graph as PG
     rng = np.random.default_rng(5)
     n = 80
     gt = [from_rpy_xyz(0, 0, 0, 0, 2 * np.pi * i / n, 0) @
@@ -801,6 +821,19 @@ def test_robust_device_backend_on_the_card_equals_cpu():
     bad = np.eye(4, dtype=np.float32)
     bad[:3, 3] = [25.0, -13.0, 8.0]
     links.insert(40, Link(40, 5, LOOP_CLOSURE, bad, np.eye(6) * 100.0))
+    return poses, links
+
+
+def test_robust_device_backend_on_the_card_equals_cpu():
+    """run_optimize_robust(backend="device") on the card: K7 at least once
+    per LM iteration and no plain solve; poses within translations 5e-2
+    and chi2 within 10 % of the same call on the CPU, and the gross loop
+    closure ejected (an 80-vertex noisy loop, as tests/test_dist.py's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.optim import pose_graph as PG
+    poses, links = _noisy_loop_80()
     rounds, orig = [], PG.get_connected_graph
 
     def rec(root, p, lk):
@@ -823,6 +856,72 @@ def test_robust_device_backend_on_the_card_equals_cpu():
         np.testing.assert_allclose(card[k][:3, 3], cpu[k][:3, 3], rtol=0,
                                    atol=5e-2)
     assert abs(card_chi2 - cpu_chi2) <= 0.1 * cpu_chi2 + 1e-9
+
+
+@pytest.mark.parametrize("rows", [(), (6,), (6, 6), (6, 3)])
+def test_segment_sum_card_equals_cpu(rows):
+    """The assembly's segment sum (optim/segment.py) on the card equals
+    index_add_ on the CPU bit for bit, signs of zeros included: each
+    destination's terms added in edge order, with many repeated
+    destinations (one of them 3000 times, as BA's padded observations) and
+    exact zeros among the terms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.optim.segment import segment_sum
+    rng = np.random.default_rng(len(rows))
+    e, n = 8000, 300
+    idx = np.concatenate([rng.integers(0, n, e - 3000),
+                          np.zeros(3000, np.int64)])
+    rng.shuffle(idx)
+    x = (rng.normal(0, 1, (e,) + rows) *
+         10.0 ** rng.integers(-6, 6, (e,) + rows)).astype(np.float32)
+    x[rng.random(e) < 0.1] = -0.0
+    want = torch.zeros((n,) + rows).index_add_(0, torch.as_tensor(idx),
+                                              torch.as_tensor(x))
+    for _ in range(2):
+        got = segment_sum(torch.as_tensor(x).cuda(),
+                          torch.as_tensor(idx).cuda(), n).cpu()
+        assert torch.equal(got, want)
+        assert torch.equal(torch.signbit(got), torch.signbit(want))
+
+
+def test_backends_repeat_bit_for_bit():
+    """Fault C7: the device back end (run_optimize_robust, backend
+    "device") and bundle adjustment (ba_solve with padded observations,
+    as global BA runs it) give the same bits when run twice on the card:
+    their assembly sums in one order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.optim import pose_graph as PG
+    from tpuslam_torch.optim.ba import ba_solve
+    poses, links = _noisy_loop_80()
+    runs = [PG.run_optimize_robust(poses, links, 20, backend="device")
+            for _ in range(2)]
+    assert runs[0][1] == runs[1][1]
+    for k in runs[0][0]:
+        assert np.array_equal(runs[0][0][k], runs[1][0][k])
+    rng = np.random.default_rng(4)
+    W, L, pad = 8, 256, 2000
+    Tcw = np.tile(np.eye(4, dtype=np.float32), (W, 1, 1))
+    Tcw[:, 0, 3] = -0.5 * np.arange(W)
+    lms = np.stack([rng.uniform(-4, 4, L), rng.uniform(-2, 2, L),
+                    rng.uniform(6, 20, L)], 1).astype(np.float32)
+    oc = np.concatenate([rng.integers(0, W, 6 * L), np.zeros(pad, int)])
+    ol = np.concatenate([np.repeat(np.arange(L), 6), np.zeros(pad, int)])
+    valid = np.arange(len(oc)) < 6 * L
+    Tn = Tcw.copy()
+    Tn[:, :3, 3] += rng.normal(0, 0.02, (W, 3)).astype(np.float32)
+    p = np.einsum("wij,lj->wli", Tcw[:, :3, :3], lms) + Tcw[:, None, :3, 3]
+    uv = np.stack([500 * p[oc, ol, 0] / p[oc, ol, 2] + 320,
+                   500 * p[oc, ol, 1] / p[oc, ol, 2] + 240], 1)
+    uv = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+    args = [torch.as_tensor(a).cuda() for a in (
+        Tn, lms, np.array([500, 500, 320, 240], np.float32),
+        oc.astype(np.int64), ol.astype(np.int64), uv, valid)]
+    outs = [ba_solve(*args, n_cams=W, n_lms=L, iterations=5,
+                     huber_delta=8.0) for _ in range(2)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def _need_card():

@@ -11,12 +11,11 @@ that live in another kernel's file to that file.
 
 KERNELS are the kernels of the main path; TOOLS are launchers that the
 main path does not run: the K1 phase harness of
-tpuslam_torch/tools/probe_bm_parts.py, K3's two halves alone
+tpuslam_torch/tools/probe_bm_parts.py, and K3's two halves alone
 (`orb_blur`, `orb_tests`), whose plain twins are the two halves of K3's
-(counted as K3's plain version when it runs them), and K7 cut after its
-forward pass (`thomas_stage`, tpuslam_torch/tools/thomas_probe.py).  The
-blur alone runs on the tool apps' path and the multi-device front end:
-dist/mesh.py's frontend_one, which the hardware self-test drives, and
+(counted as K3's plain version when it runs them).  The blur alone runs
+on the tool apps' path and the multi-device front end: dist/mesh.py's
+frontend_one, which the hardware self-test drives, and
 sharded_frontend_step.
 BACKEND are the kernels of the pose graph's device back end
 (optim/device.py), which only `backend="device"` and dist/mesh.py's
@@ -56,12 +55,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXTRA_FLAGS = {"gftt": ["-fmad=false"], "orb": ["-fmad=false"],
                "thomas": ["-fmad=false"]}
 KERNELS = ("stereo_bm", "gftt", "orb", "median", "lr_check", "lm_refine")
-TOOLS = ("stereo_bm_phase", "orb_blur", "orb_tests", "thomas_stage")
+TOOLS = ("stereo_bm_phase", "orb_blur", "orb_tests")
 BACKEND = ("thomas",)
 ALL = KERNELS + TOOLS + BACKEND
 # launcher name -> csrc/<source>.cu, where the two differ
 SOURCES = {"stereo_bm_phase": "stereo_bm", "orb_blur": "orb",
-           "orb_tests": "orb", "thomas_stage": "thomas"}
+           "orb_tests": "orb"}
 
 # C signature of each launcher: pointers and the stream are
 # void*, sizes and parameters int; every launcher returns cudaGetLastError()
@@ -78,7 +77,6 @@ SIGNATURES = {
     "orb_blur": ("tpuslam_orb_blur", [_P] * 3 + [_I] * 3 + [_P]),
     "orb_tests": ("tpuslam_orb_tests", [_P] * 5 + [_I] * 4 + [_P]),
     "thomas": ("tpuslam_thomas", [_P] * 7 + [_I] * 2 + [_P]),
-    "thomas_stage": ("tpuslam_thomas_stage", [_P] * 7 + [_I] * 3 + [_P]),
 }
 
 LAUNCHES = {k: 0 for k in ALL}
@@ -141,18 +139,22 @@ def build_all(names=ALL) -> dict[str, float]:
     return took
 
 
-def function(src: str, sym: str, argtypes):
-    """The C function `sym` of csrc/<src>.cu's library, typed with
-    `argtypes` and returning int; the library is built and loaded on first
-    use."""
+def library(src: str) -> ctypes.CDLL:
+    """csrc/<src>.cu's library, built and loaded on first use."""
     with _lock:
         if src not in _libs:
             build_all((src,))
             _libs[src] = ctypes.CDLL(str(_lib_path(src)))
-        fn = getattr(_libs[src], sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        return fn
+        return _libs[src]
+
+
+def function(src: str, sym: str, argtypes):
+    """The C function `sym` of csrc/<src>.cu's library, typed with
+    `argtypes` and returning int."""
+    fn = getattr(library(src), sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def launcher(name: str):

@@ -33,6 +33,8 @@ tpuslam (tests/test_torch_config.py keeps them equal).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..kernels import _cuda
@@ -539,9 +541,10 @@ def _mm6(A, B):
 
 
 def thomas_solve_cuda(D, S, B, lam):
-    """Kernel K7: _thomas_solve in one launch whose thread blocks, one for
-    each 36 columns of B, walk the vertices forward and back
-    (csrc/thomas.cu); lam is a 0-d f32 tensor on the card."""
+    """Kernel K7: _thomas_solve in one launch (csrc/thomas.cu): a thread
+    block per 992 columns of B, in which one warp runs the factor chain
+    and the columns, a lane each, follow it a few vertices behind, forward
+    and back; lam is a 0-d f32 tensor on the card."""
     _cuda.expect(D, "D", torch.float32, 3)
     _cuda.expect(S, "S", torch.float32, 3)
     _cuda.expect(B, "B", torch.float32, 3)
@@ -552,9 +555,10 @@ def thomas_solve_cuda(D, S, B, lam):
         raise ValueError(f"thomas: D {tuple(D.shape)}, S {tuple(S.shape)}, "
                          f"B {tuple(B.shape)} are not (n,6,6), (n-1,6,6), "
                          f"(n,6,m)")
-    # a chain of factors for each block of 36 columns (csrc/thomas.cu)
-    L = torch.empty(((B.shape[2] + 35) // 36, n, 6, 6), dtype=torch.float32,
-                    device=D.device)
+    # a factor chain for each thread block (csrc/thomas.cu)
+    chains = _cuda.function("thomas", "tpuslam_thomas_chains",
+                            [ctypes.c_int])(B.shape[2])
+    L = torch.empty((chains, n, 48), dtype=torch.float32, device=D.device)
     G = torch.empty_like(B)                   # the forward pass's g_k
     X = torch.empty_like(B)
     with torch.cuda.device(D.device):

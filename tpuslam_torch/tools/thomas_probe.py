@@ -3,7 +3,7 @@ build, its forward and backward passes timed apart, and another version
 of its source timed in turns with it.
 
     python -m tpuslam_torch.tools.thomas_probe [--source FILE] [--turns N]
-        [--sass DIR] [--shapes 4540x13 999x1 60x325]
+        [--sass DIR] [--shapes 4540x13 999x1 60x325] [--variant NAME=FLAGS]
 
 Builds csrc/thomas.cu and, with --source, FILE (another version of it
 with the same launcher `tpuslam_thomas`, e.g. a parent's from an
@@ -13,13 +13,15 @@ At the back end's shapes each version is held to the plain version
 (`optim.device._thomas_solve`, bit for bit) and timed behind the spin of
 tools/timing.py: the whole solve and, where the source has
 `tpuslam_thomas_stage`, the solve cut after its forward pass; the
-versions in turns (FILE, this, this, FILE), N times.  The shapes:
+versions in turns (FILE, this, this, FILE), N times.  --variant also
+builds csrc/thomas.cu with other flags (its K7_* shape macros).  The shapes:
 4540 x 13, the first LM system of chip_smoke.py's KITTI-00-sized graph
 (4541 vertices, one Woodbury extra), where the plain version would take
 minutes and the versions are held to each other; 999 x 1, the same
 graph's first 1000 vertices; 60 x 325, a random system of the per-frame
-graph's shape (27 Woodbury extras).  With --sass the kernels' SASS
-(cuobjdump) is written to DIR.  Needs a CUDA card.
+graph's shape (a right-hand side and 27 Woodbury extras' unit columns).
+With --sass the kernels' SASS (cuobjdump) is written to DIR.  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -100,12 +102,18 @@ def first_system(poses, links, tau=TAU):
 def random_system(n, m, seed=0):
     """A symmetric positive definite block-tridiagonal system (D, S, B,
     lam) made with numpy from `seed`, each diagonal block dominating its
-    two neighbours (tests/test_torch_cuda.py's)."""
+    two neighbours (tests/test_torch_cuda.py's).  Where m = 1 + 12 R, B
+    is a right-hand side beside the unit block-columns of R Woodbury
+    extras at random vertices, as lm_solve_sparse gives K7."""
     rng = np.random.default_rng(seed)
     A = rng.normal(0, 1, (n, 6, 6))
     D = A @ A.transpose(0, 2, 1) + 12 * np.eye(6)
     S = rng.normal(0, 0.5, (n - 1, 6, 6))
     B = rng.normal(0, 1, (n, 6, m))
+    if m > 1 and (m - 1) % 12 == 0:
+        B[..., 1:] = 0.0
+        for r, v in enumerate(rng.integers(0, n, (m - 1) // 6)):
+            B[v, :, 1 + 6 * r:7 + 6 * r] = np.eye(6)
     return (*[torch.as_tensor(a, dtype=torch.float32, device="cuda")
               for a in (D, S, B)], torch.tensor(0.25, device="cuda"))
 
@@ -131,18 +139,18 @@ def systems(shapes=SHAPES):
 
 
 def build(sources):
-    """{name: (library, ptxas report)} of each (name, .cu path), built in
-    parallel with K7's flags and `-Xptxas -v`.  The report: per kernel
-    (its mangled name) registers, shared memory bytes, spill store and
-    load bytes."""
+    """{name: (library, ptxas report, path)} of each (name, .cu path,
+    extra nvcc flags), built in parallel with K7's flags and
+    `-Xptxas -v`.  The report: per kernel (its mangled name) registers,
+    shared memory bytes, spill store and load bytes."""
     out_dir = _cuda.BUILD_ROOT / "thomas_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, src in sources:
+    for name, src, extra in sources:
         out = out_dir / f"lib{name}.so"
         cmd = ([_cuda._nvcc()] + _cuda.NVCC_FLAGS +
-               _cuda.EXTRA_FLAGS["thomas"] + ["-Xptxas", "-v", "-o",
-                                              str(out), str(src)])
+               _cuda.EXTRA_FLAGS["thomas"] + list(extra) +
+               ["-Xptxas", "-v", "-o", str(out), str(src)])
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), out)
     built = {}
@@ -170,8 +178,9 @@ def solver(lib, D, S, B, lam, stop=0):
     with `stop` 1 the solve cut after its forward pass (None where the
     library has no cut).  Returns (call, X)."""
     n, m = B.shape[0], B.shape[2]
-    # scratch factors for a chain per 32 columns: enough for any version
-    L = torch.empty(((m + 31) // 32, n, 6, 6), device="cuda")
+    # scratch factors, 48 floats a vertex for a chain per 32 columns:
+    # enough for any version
+    L = torch.empty(((m + 31) // 32, n, 48), device="cuda")
     G, X = torch.empty_like(B), torch.empty_like(B)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [t.data_ptr() for t in (D, S, B, lam, L, G, X)]
@@ -195,6 +204,37 @@ def solver(lib, D, S, B, lam, stop=0):
     return call, X
 
 
+def divcheck(lib, n=1 << 24, seed=0):
+    """K7's two divisions (div_fast, and div_small for the values the
+    first does not take) against IEEE division on n random pairs on the
+    card: mantissas uniform, exponents uniform over [-155, 100]
+    (numerators: subnormals, and below them zeros; a sixteenth of them
+    zeros besides) and [-40, 40] (divisors), signs random.  Returns
+    (pairs, pairs within div_fast's checks, pairs there whose bits
+    differ, pairs that div_small takes whose bits differ); the last two
+    must be 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(lo, hi):
+        m = 1.0 + torch.rand(n, device="cuda", generator=g,
+                             dtype=torch.float64)
+        e = torch.randint(lo, hi + 1, (n,), device="cuda", generator=g)
+        sign = torch.randint(0, 2, (n,), device="cuda", generator=g) * 2 - 1
+        # in f64, then rounded to f32: subnormals where they fall
+        return (sign * m * torch.exp2(e.double())).float().contiguous()
+    s, d = draw(-155, 100), draw(-40, 40)
+    s[torch.rand(n, device="cuda", generator=g) < 1 / 16] = 0.0
+    out = torch.empty(n, dtype=torch.int32, device="cuda")
+    fn = lib.tpuslam_thomas_divcheck
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if fn(s.data_ptr(), d.data_ptr(), out.data_ptr(), n,
+          torch.cuda.current_stream().cuda_stream) != 0:
+        raise RuntimeError("divcheck launch failed")
+    fast = torch.bincount(out & 3, minlength=3).tolist()
+    return n, fast[1] + fast[2], fast[1], int((out >= 4).sum())
+
+
 def sass(lib_path, out_path):
     """Write the library's SASS (cuobjdump -sass) to out_path."""
     cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
@@ -205,13 +245,16 @@ def sass(lib_path, out_path):
     return text
 
 
-def run(source=None, turns=1, shapes=SHAPES, sass_dir=None):
+def run(source=None, turns=1, shapes=SHAPES, sass_dir=None, variants=()):
     """Build, hold and time; returns the rows (one per shape and
-    version)."""
+    version).  `variants`: (name, extra nvcc flags) builds of
+    csrc/thomas.cu beside it (other K7_* shapes)."""
     from ..optim import device as DEV
-    versions = [("this", _cuda.CSRC / "thomas.cu")]
+    versions = [("this", _cuda.CSRC / "thomas.cu", [])]
+    versions += [(name, _cuda.CSRC / "thomas.cu", flags.split())
+                 for name, flags in variants]
     if source:
-        versions.append(("other", Path(source)))
+        versions.append(("other", Path(source), []))
     built = build(versions)
     for name, (_, report, path) in built.items():
         for kern, r in report.items():
@@ -221,7 +264,16 @@ def run(source=None, turns=1, shapes=SHAPES, sass_dir=None):
         if sass_dir:
             Path(sass_dir).mkdir(parents=True, exist_ok=True)
             sass(path, Path(sass_dir) / f"thomas_{name}.sass")
-    order = ["other", "this", "this", "other"] if source else ["this"]
+    if hasattr(built["this"][0], "tpuslam_thomas_divcheck"):
+        pairs, within, differ, wide = divcheck(built["this"][0])
+        print(f"# fast division: {pairs} random pairs, {within} within its "
+              f"checks, {differ} of them differ from IEEE division; the "
+              f"small-value division differs on {wide}", flush=True)
+        if differ or wide:
+            raise AssertionError("K7's divisions differ from IEEE "
+                                 "division")
+    names = [v[0] for v in versions]
+    order = names[::-1] + names          # e.g. other, this, this, other
     rows = []
     for shape, (D, S, B, lam) in systems(shapes).items():
         n, m = B.shape[0], B.shape[2]
@@ -271,6 +323,9 @@ def main(argv=None):
     ap.add_argument("--sass", help="write the kernels' SASS to this "
                     "directory")
     ap.add_argument("--shapes", nargs="*", default=list(SHAPES))
+    ap.add_argument("--variant", action="append", default=[],
+                    metavar="NAME=FLAGS", help="also csrc/thomas.cu built "
+                    "with these nvcc flags, e.g. wide=-DK7_WARPS=32")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("thomas_probe: needs a CUDA device")
@@ -278,7 +333,8 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"# card: {smi}", flush=True)
-    rows = run(args.source, args.turns, args.shapes, args.sass)
+    rows = run(args.source, args.turns, args.shapes, args.sass,
+               [v.split("=", 1) for v in args.variant])
     print(json.dumps({"card": smi, "rows": rows}))
 
 
