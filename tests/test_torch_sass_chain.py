@@ -66,3 +66,33 @@ def test_latencies_add_along_dependences(op, ready):
     cycles, times = C.chain(C.walk(insns, 0x10, 0xd0))
     assert cycles == 46
     assert dict((a, t) for a, _, t in times)[op] == ready
+
+
+NESTED = """
+                Function : _Z6kernelILi0EEvv
+        /*0000*/                   LDS R2, [R3] ;
+        /*0010*/              @!P3 BRA 0x80 ;
+        /*0020*/                   FADD R4, R2, R2 ;
+        /*0030*/              @!P4 BRA 0x60 ;
+        /*0040*/                   FMUL R5, R4, 1.26765060022822940150e+30 ;
+        /*0050*/                   FADD R4, R5, R5 ;
+        /*0060*/                   FADD R6, R4, R4 ;
+        /*0070*/                   STG.E desc[UR4][R8.64], R6 ;
+        /*0080*/                   ISETP.GE.AND P1, PT, R9, 0x10, PT ;
+        /*0090*/              @!P1 BRA 0x0 ;
+        /*00a0*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("rare, path, cycles", [
+    (None, [0x0, 0x10, 0x20, 0x30, 0x40, 0x50, 0x60, 0x70, 0x80], 36),
+    ("1.2676506002282294", [0x0, 0x10, 0x20, 0x30, 0x60, 0x70, 0x80], 28)])
+def test_the_rare_path_is_skipped(rare, path, cycles):
+    """With `rare`, the innermost branch around the marked instruction is
+    taken (K7's div_small inline); the branch around the whole step is
+    not."""
+    insns = C.functions(NESTED)["_Z6kernelILi0EEvv"]
+    assert C.loops(insns) == [(0x0, 0x90)]
+    walked = C.walk(insns, 0x0, 0x90, rare)
+    assert [a for a, _, _, _ in walked] == path
+    assert C.chain(walked)[0] == cycles

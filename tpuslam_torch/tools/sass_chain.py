@@ -2,8 +2,8 @@
 least time a step can take, whatever the card does beside it.
 
     python -m tpuslam_torch.tools.sass_chain FILE.sass --function NAME
-        --marker OPCODE [--index I] [--exclude OPCODE] [--per N]
-        [--clock-mhz MHZ] [--show]
+        --marker OPCODE [--index I] [--exclude OPCODE] [--rare TEXT]
+        [--per N] [--clock-mhz MHZ] [--show]
 
 Reads `cuobjdump -sass` output, takes the function whose name contains
 NAME, and in it, of the loops whose bodies hold the most instructions
@@ -11,9 +11,11 @@ of opcode MARKER and none of opcode EXCLUDE, the I-th by address
 (MUFU.RSQ picks K7's factor chain; STG without LDGSTS, index 0 and -1,
 its columns' forward and backward loops).  It walks the body once as
 one lane runs it on its fast path: a conditional forward branch over a
-slow-path call (a call within a few instructions) is taken, any other
-conditional forward branch falls through (a wait on a barrier that
-ptxas placed out of line, after the exits, succeeds at once), an
+slow-path call (a call within a few instructions) is taken, and so is
+the innermost one around an instruction whose operands hold TEXT (a
+rare path inline: K7's div_small, marked by its 2^100 scaling), any
+other conditional forward branch falls through (a wait on a barrier
+that ptxas placed out of line, after the exits, succeeds at once), an
 unconditional one jumps, a branch back inside the body (a spin) falls
 through.  Each instruction's results are ready its latency after its
 last operand (registers, predicates, uniform registers, a predicated
@@ -94,9 +96,23 @@ def _regs(text):
     return [r for r in REG.findall(text) if r not in ("RZ", "URZ", "PT")]
 
 
-def walk(insns, lo, hi):
+def _guards(insns, a, t, rare):
+    """Whether the conditional branch at a, over (a, t), is the innermost
+    one around an instruction whose operands hold `rare`."""
+    over = [x for x in insns if a < x[0] < t]
+    marked = [x[0] for x in over if rare in x[3]]
+    if not marked:
+        return False
+    return not any(op == "BRA" and pred and _target(ops) is not None and
+                   b < m < _target(ops) for b, pred, op, ops in over
+                   for m in marked)
+
+
+def walk(insns, lo, hi, rare=None):
     """The instructions one lane runs through the body [lo, hi] on its
-    fast path, in order."""
+    fast path, in order; with `rare`, the innermost conditional branch
+    around an instruction whose operands hold it is taken too (a rare
+    path inline)."""
     at = {a: i for i, (a, _, _, _) in enumerate(insns)}
     i, path = at[lo], []
     while i < len(insns) and insns[i][0] < hi:
@@ -107,7 +123,8 @@ def walk(insns, lo, hi):
             if t is not None and a < t <= hi:
                 over = [x for x in insns if a < x[0] < t]
                 if not pred or (len(over) <= SLOW_PATH and any(
-                        x[2].startswith("CALL") for x in over)):
+                        x[2].startswith("CALL") for x in over)) or (
+                        rare and _guards(insns, a, t, rare)):
                     i = at[t]
                     continue
         i += 1
@@ -159,6 +176,8 @@ def main(argv=None):
     ap.add_argument("--index", type=int, default=0,
                     help="of the loops with the most markers, this one")
     ap.add_argument("--exclude", help="skip the loops holding this opcode")
+    ap.add_argument("--rare", help="an operand text only a rare inline "
+                    "path holds: the branch around it is taken")
     ap.add_argument("--clock-mhz", type=float)
     ap.add_argument("--show", action="store_true",
                     help="print each instruction's ready cycle")
@@ -168,7 +187,7 @@ def main(argv=None):
     name = next(k for k in funcs if args.function in k)
     insns = funcs[name]
     lo, hi = outermost(insns, args.marker, args.index, args.exclude)
-    path = walk(insns, lo, hi)
+    path = walk(insns, lo, hi, args.rare)
     cycles, times = chain(path)
     if args.show:
         for a, op, t in times:
