@@ -1,6 +1,6 @@
 """GPU smoke test of the tpuslam_torch main paths, run from the repo root:
 
-    python3 chip_smoke.py [--spread N]
+    python3 chip_smoke.py [--spread N] [--parent DIR]
 
 Needs one CUDA card and nvcc (/usr/local/cuda); imports neither JAX nor
 tpuslam.  Phases, each of which raises on failure:
@@ -37,7 +37,8 @@ tpuslam.  Phases, each of which raises on failure:
    and the same inliers at 2 px, timed, on the arguments the warm run's VO
    step gave it at frame 1, and on a scene with a known pose;
 7. post-loop: the robust pose graph and global BA on the timed run's
-   Mapper; assert finite poses and a non-empty graph;
+   Mapper; assert finite poses and a non-empty graph, and global BA run
+   twice on the same input bit for bit (its sums take one order);
 8. slice path: the first slice's configuration (no LR check, no refine,
    no Mapper), timed, with its own counters (K1-K4) and ATE bound;
 9. ingest: bench.py's ingest pass -- the 120 frames written as PNGs (rows
@@ -109,20 +110,24 @@ tpuslam.  Phases, each of which raises on failure:
    within translations 5e-2 and chi2 10 % of the host back end on the
    same graph, "device-dense" and "device" within chi2 2e-3 and
    translations 2e-2, ATE within PF_ATE_BOUND_M; each back end's host
-   wall; K7 held to its plain version (1e-4 of max|X|) on the first
-   input the resumed run gave it, the main path's own shape (~60
-   vertices x 1 + 12 R columns, R the Woodbury extras; 169, five thread
-   blocks, at phase 10's seeds), timed spun and unspun beside the plain
-   version and the dense torch.linalg.solve of the same system: the
-   numbers of K7's row; (c) a KITTI-00-sized graph (4541 vertices) with
-   odometry noise, revisit loop closures, one forward closure and one
-   gross outlier: run_optimize_robust on the host and with
-   backend="device", the wall of each, rounds, chi2, the largest
-   translation difference, the outlier gone; then K7 held to its plain
-   version on the first lambda's system of a 1000-vertex cut (1e-4 of
-   max|X|) and timed spun and unspun at 1000 and 4541 vertices, the plain
-   version once at 1000, and the dense torch.linalg.solve of the same
-   1000-vertex system (the row's `at_cut` and `at_4541`);
+   wall; K7 held to its plain version bit for bit on the first input
+   the resumed run gave it, the main path's own shape (~60 vertices x 1 +
+   12 R columns, R the Woodbury extras), timed spun and unspun, its
+   forward and backward passes apart (tpuslam_thomas_stage), beside the
+   plain version, the dense torch.linalg.solve of the same system and
+   its chain bound from its SASS (tools/sass_chain.py): the numbers of
+   K7's row; (c) a KITTI-00-sized graph (4541 vertices) with odometry
+   noise, revisit loop closures, one forward closure and one gross
+   outlier: run_optimize_robust on the host and twice with
+   backend="device" (the two bit for bit: the assembly sums in one
+   order), the wall of each, rounds, chi2, the largest translation
+   difference, the outlier gone; then K7 held to its plain version bit
+   for bit on the first lambda's system of a 1000-vertex cut and timed
+   as in (a) at 1000 and 4541 vertices (the dense solve of the whole
+   graph's 27240^2 system ~3 GB; the plain version not run there) (the
+   row's `at_cut` and `at_4541`); with --parent DIR (a parent's tree,
+   unpacked), K7 (tools/thomas_probe.py) and the 4541-vertex device back
+   end (tools/backend_turns.py) in turns with the parent's;
 15. the tool apps, each with every counter reset just before it: (a)
    cli/kernel_test.py on the golden pair (all_pass, 0 golden mismatches,
    K1, K5 and K2 once, the report and the disparity equal to the CPU
@@ -176,6 +181,7 @@ the nvidia-smi line, and last
 """
 
 import argparse
+import functools
 import json
 import math
 import subprocess
@@ -233,22 +239,16 @@ SGBM_ATE_BOUND_M = 0.585
 RT_ATE_BOUND_M = {"sgbm": 0.033, "lk": 0.0103}
 
 
-# the back-end phase's graph at a size users run: KITTI odometry
-# sequence 00's 4541 frames, one node per frame as the Mapper keeps them.
-# A 100-frame circuit (1 m per frame) driven again and again; every 5th
-# frame of a lap closes a loop to the same place a lap before (from = new,
-# to = old); odometry noise as tests/test_optim.py:55-83's make_noisy_loop
-# (0.05 m and 0.01 rad per axis, Omega = 100 I); one forward closure (old
-# -> new, a Woodbury extra) and one gross outlier closure
-KITTI00_FRAMES = 4541
-BE_LAP, BE_EVERY, BE_SEED = 100, 5, 13
-BE_CUT = 1000           # K7 against its plain version on this many vertices
+# the back-end phase's graph at a size users run (KITTI odometry sequence
+# 00's 4541 frames) and its 1000-vertex cut: tools/thomas_probe.py
+# BE_CUT; K7 is held to its plain version bit for bit (tolerance 0)
 BE_CHECKPOINT = 30      # frames 0-29, then a resume (phase 14b)
 # host vs device back end (f32 vs f64): tests/test_dist.py:124-125;
 # device vs device-dense: tests/test_dist.py:172-175
 BE_HOST_TOL = dict(t=5e-2, chi2=0.1)
 BE_DENSE_TOL = dict(t=2e-2, chi2=2e-3)
-K7_TOL = 1e-4           # of max|X|: f32, sums possibly in another order
+# cuobjdump's text of 2^100, the scaling of K7's rare path (div_small)
+K7_RARE = "1.2676506002282294"
 
 
 def log(msg):
@@ -853,6 +853,11 @@ def post_loop_phase(mapper, camera, cfg, gt):
     ba_poses = refine_trajectory_global_ba(mapper, optimized, camera)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    # global BA again on the same input: its sums take one order (C7)
+    ba_again = refine_trajectory_global_ba(mapper, optimized, camera)
+    if sorted(ba_again) != sorted(ba_poses) or not all(
+            np.array_equal(ba_again[k], ba_poses[k]) for k in ba_poses):
+        raise AssertionError("global BA: two runs on the same input differ")
     ids = sorted(optimized)
     gt_n = gt[[i - 1 for i in ids]]
     for name, pd in (("posegraph", optimized), ("ba", ba_poses)):
@@ -866,7 +871,7 @@ def post_loop_phase(mapper, camera, cfg, gt):
             f"r_err={re_:.6f} deg/m")
     log(f"# post-loop: {len(poses)} nodes, {len(links)} links, chi2 "
         f"{chi2:.6g}; pose graph {t1 - t0:.2f} s, global BA "
-        f"{t2 - t1:.2f} s (host wall)")
+        f"{t2 - t1:.2f} s (host wall); global BA run twice: bit for bit")
 
 
 def slice_phase(camera, staged, items, gt):
@@ -1716,70 +1721,80 @@ def backend_phase(seq, workdir, straight, rows):
                           launches=launches, **main)
 
 
-def kitti_size_graph(n=KITTI00_FRAMES, seed=BE_SEED):
-    """Phase 14 (c)'s graph (see KITTI00_FRAMES), made with numpy: ground
-    truth (n,4,4), noisy poses {id: 4x4 f32}, the link MultiMap, the gross
-    outlier's (from, to)."""
-    from tpuslam_torch.io.synthetic import exact_closure, noisy_circuit
-    from tpuslam_torch.mapping.graph import LOOP_CLOSURE, Link
-    gt, poses, links = noisy_circuit(n, BE_LAP, np.random.default_rng(seed))
-    for i in range(BE_LAP, n, BE_EVERY):
-        exact_closure(links, gt, i, i - BE_LAP)
-    exact_closure(links, gt, n - 3 * BE_LAP // 2, n - BE_LAP // 2 - 1)
-    bad = np.eye(4, dtype=np.float32)
-    bad[:3, 3] = [25.0, -13.0, 8.0]
-    outlier = (n // 2, n // 4)
-    links.insert(outlier[0], Link(*outlier, LOOP_CLOSURE, bad,
-                                  np.eye(6) * 100.0))
-    return gt, poses, links, outlier
+def k7_cut_ms(D, S, B, lam):
+    """K7's whole solve and its forward pass alone (`tpuslam_thomas_stage`
+    cut after it), spun ms: (whole, forward, backward)."""
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.tools.thomas_probe import solver
+    from tpuslam_torch.tools.timing import time_ms
+    whole, _ = solver(_cuda.library("thomas"), D, S, B, lam)
+    fwd, _ = solver(_cuda.library("thomas"), D, S, B, lam, stop=1)
+    t, f = time_ms(whole), time_ms(fwd)
+    return t, f, t - f
 
 
-def first_system(poses, links, tau):
-    """The first LM iteration's K7 input for a pose graph, as
-    lm_solve_sparse builds it on the card: D, S, B (the right-hand side,
-    then the Woodbury extras' unit P columns) and lam = tau * max_diag."""
+@functools.lru_cache(maxsize=None)
+def k7_chain_cycles():
+    """(the card's largest SM clock in MHz, cycles of one forward step of
+    K7's factor chain, of one backward step of a column) from the built
+    library's SASS (tools/sass_chain.py)."""
+    from tpuslam_torch.kernels import _cuda
+    from tpuslam_torch.tools import sass_chain
+    from tpuslam_torch.tools.thomas_probe import sass
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True, check=True, timeout=60).stdout.split()[0])
+    with tempfile.TemporaryDirectory() as d:
+        text = sass(_cuda._lib_path("thomas"), f"{d}/k7.sass")
+    insns = next(v for k, v in sass_chain.functions(text).items()
+                 if "ILi0E" in k)
+    # the factor chain's loop holds the square roots; the columns' loops
+    # store G and X and copy nothing, the backward one last; the rare
+    # path (div_small) is the one that scales by 2^100
+    steps = []
+    for marker, index, exclude in (("MUFU.RSQ", 0, None),
+                                   ("STG", -1, "LDGSTS")):
+        lo, hi = sass_chain.outermost(insns, marker, index, exclude)
+        steps.append(sass_chain.chain(sass_chain.walk(
+            insns, lo, hi, rare=K7_RARE))[0])
+    log(f"# K7's chain from its SASS (tools/sass_chain.py): forward step "
+        f"{steps[0]} cycles, backward step {steps[1]} cycles, at {mhz:g} "
+        f"MHz")
+    return mhz, steps[0], steps[1]
+
+
+def k7_chain_ms(n):
+    """The chain bound of an n-vertex solve: n - 1 forward steps of the
+    factor chain and n backward steps of a column, at the card's largest
+    SM clock."""
+    mhz, forward, backward = k7_chain_cycles()
+    return ((n - 1) * forward + n * backward) / (mhz * 1e3)
+
+
+def hold_k7(what, D, S, B, lam, plain_runs=1, plain=True):
+    """K7 against its plain version on one system, bit for bit, both
+    timed: K7 spun and unspun, its forward and backward passes apart, the
+    plain version unspun; the dense torch.linalg.solve of the same system
+    beside it.  Where `plain` is False (a graph at KITTI 00's size, where
+    the plain version takes minutes) it is not run.  Returns the numbers
+    of K7's row for this shape."""
     from tpuslam_torch.optim import device as DEV
-    ids, P, ef, et, Z, O, fidx = DEV.graph_to_arrays(poses, links)
-    xsel, xp, xq = DEV.classify_extra_edges(ef, et, fidx)
-    nf = len(ids) - 1
-
-    def on(a, dt=torch.float32):
-        return torch.as_tensor(a, dtype=dt, device="cuda")
-    D, S, X, b, _, max_diag = DEV.sparse_system(
-        on(P), on(ef, torch.long), on(et, torch.long),
-        DEV._se3_inv(on(Z)), on(Z), on(O), nf, on(fidx, torch.long),
-        on(xsel, torch.long), on(xp, torch.long), on(xq, torch.long),
-        nf - 1)
-    lam = (tau * max_diag).reshape(())
-    B = b.reshape(nf, 6, 1)
-    if len(xp):
-        P_ = torch.zeros((nf, 6, 2 * len(xp), 6), device="cuda")
-        P_[on(np.concatenate([xp, xq]), torch.long), :,
-           torch.arange(2 * len(xp), device="cuda"), :] = \
-            torch.eye(6, device="cuda")
-        B = torch.cat([B, P_.reshape(nf, 6, -1)], dim=-1)
-    return D.contiguous(), S.contiguous(), B.contiguous(), lam
-
-
-def hold_k7(what, D, S, B, lam, plain_runs=1):
-    """K7 against its plain version on one system (K7_TOL of max|X|), both
-    timed: K7 spun and unspun, the plain version unspun.  Returns the
-    numbers of K7's row for this shape."""
-    from tpuslam_torch.optim import device as DEV
+    from tpuslam_torch.tools.thomas_probe import BE_CUT
     from tpuslam_torch.tools.timing import bound, call_ms, time_ms
     kx = DEV.thomas_solve_cuda(D, S, B, lam)
-    px = DEV._thomas_solve(D, S, B, lam)
+    px = DEV._thomas_solve(D, S, B, lam) if plain else None
     torch.cuda.synchronize()
-    err = max_abs_err(kx, px)
-    rel_err = err / float(px.abs().max())
-    if not rel_err <= K7_TOL:
-        raise AssertionError(f"K7, {what}: {rel_err} of max|X| from its "
-                             f"plain version (tolerance {K7_TOL})")
+    err = max_abs_err(kx, px) if plain else None
+    if plain and not torch.equal(kx, px):
+        raise AssertionError(f"K7, {what}: differs from its plain version "
+                             f"by {err} (tolerance 0: bit for bit)")
     n, m = B.shape[0], B.shape[2]
     b_ms, b_by = bound(*k7_bound(n, m))
-    k_ms = time_ms(lambda: DEV.thomas_solve_cuda(D, S, B, lam))
+    k_ms, f_ms, bw_ms = k7_cut_ms(D, S, B, lam)
     k_call = call_ms(lambda: DEV.thomas_solve_cuda(D, S, B, lam))
-    p_ms = call_ms(lambda: DEV._thomas_solve(D, S, B, lam), runs=plain_runs)
+    p_ms = call_ms(lambda: DEV._thomas_solve(D, S, B, lam),
+                   runs=plain_runs) if plain else None
     # the library yardstick: one dense solve of the same (6n)^2 system
     A = torch.zeros((n, 6, n, 6), device="cuda")
     k_ = torch.arange(n, device="cuda")
@@ -1789,21 +1804,29 @@ def hold_k7(what, D, S, B, lam, plain_runs=1):
     A = A.reshape(6 * n, 6 * n)
     rhs = B.reshape(6 * n, m)
     lib_x = torch.linalg.solve(A, rhs).reshape(n, 6, m)
-    lib_ms = time_ms(lambda: torch.linalg.solve(A, rhs))
-    lib_err = max_abs_err(lib_x, px) / float(px.abs().max())
-    del A
-    log(f"# K7 at {n} vertices x {m} columns ({what}): max abs err {err} "
-        f"({rel_err:.3e} of max|X|, tolerance {K7_TOL}; bit for bit: "
-        f"{bool(torch.equal(kx, px))}); K7 {k_ms:.4f} ms spun ({k_call:.4f}"
-        f" unspun, {k_ms * 1e3 / (2 * n):.3f} us per step, "
-        f"{(m + 35) // 36} blocks), plain {p_ms:.1f} ms (unspun, "
-        f"{plain_runs} runs), torch.linalg.solve dense {lib_ms:.4f} ms "
-        f"(differs by {lib_err:.3e} of max|X|), bound {b_ms:.5f} ms "
-        f"({b_by})")
-    return dict(n=n, m=m, max_abs_err=err, rel_err=rel_err, ms=k_ms,
-                call_ms=k_call, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+    lib_ms = time_ms(lambda: torch.linalg.solve(A, rhs),
+                     runs=3 if n > BE_CUT else 20)
+    ref = px if plain else kx
+    lib_err = max_abs_err(lib_x, ref) / float(ref.abs().max())
+    del A, lib_x
+    torch.cuda.empty_cache()
+    chain = k7_chain_ms(n)
+    log(f"# K7 at {n} vertices x {m} columns ({what}): " +
+        (f"bit for bit its plain version; " if plain else
+         "(the plain version not run); ") +
+        f"K7 {k_ms:.4f} ms spun (forward pass {f_ms:.4f}, backward "
+        f"{bw_ms:.4f}; {k_call:.4f} unspun, {k_ms * 1e3 / (2 * n):.3f} us "
+        f"per step, {-(-m // DEV.K7_MAX_COLS)} thread blocks)" +
+        (f", plain {p_ms:.1f} ms (unspun, {plain_runs} runs)" if plain
+         else "") +
+        f", torch.linalg.solve dense {lib_ms:.4f} ms (differs by "
+        f"{lib_err:.3e} of max|X|), bound {b_ms:.5f} ms ({b_by}), chain "
+        f"bound {chain:.4f} ms")
+    return dict(n=n, m=m, max_abs_err=err, ms=k_ms, forward_ms=f_ms,
+                backward_ms=bw_ms, call_ms=k_call, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, chain_ms=chain,
                 library_ms=lib_ms, step_us=k_ms * 1e3 / (2 * n),
-                bit_equal=bool(torch.equal(kx, px)))
+                bit_equal=bool(torch.equal(kx, px)) if plain else None)
 
 
 def k7_bound(n, m):
@@ -1817,20 +1840,23 @@ def k7_bound(n, m):
     return nbytes, ops
 
 
-def backend_scale_phase(rows):
+def backend_scale_phase(rows, parent=None):
     """Phase 14 (c): the robust pose graph at KITTI 00's size on the host
-    and the device back ends, then K7 against its plain version, timed."""
+    and twice with the device back end (bit for bit), then K7 against its
+    plain version at a 1000-vertex cut and timed at the whole graph's
+    size.  With `parent` (a parent tree, unpacked), K7 and the device back
+    end in turns with the parent's."""
     from tpuslam_torch.config import OptimizerConfig
     from tpuslam_torch.mapping.graph import MultiMap
-    from tpuslam_torch.optim import device as DEV
-    from tpuslam_torch.tools.timing import bound, call_ms, time_ms
+    from tpuslam_torch.tools.thomas_probe import (BE_CUT, first_system,
+                                                  kitti_size_graph)
     cfg = OptimizerConfig()
     gt, poses, links, outlier = kitti_size_graph()
     n = len(poses)
     out, walls, k7, n_rounds = {}, {}, {}, {}
-    for backend in ("host", "device"):
+    for backend in ("host", "device", "device again"):
         out[backend], walls[backend], k7[backend], plain, rounds = \
-            timed_robust(poses, links, cfg, backend)
+            timed_robust(poses, links, cfg, backend.split()[0])
         n_rounds[backend] = len(rounds)
         if outlier not in rounds[0] or outlier in rounds[-1]:
             raise AssertionError(f"back end (c), {backend}: the outlier "
@@ -1839,6 +1865,13 @@ def backend_scale_phase(rows):
             plain == 0 and k7["host"] == 0):
         raise AssertionError(f"back end (c): K7 launches {k7}, plain "
                              f"{plain}")
+    # the device back end twice on one graph: its sums take one order (C7)
+    a, b = out["device"], out["device again"]
+    if sorted(a[0]) != sorted(b[0]) or a[1] != b[1] or not all(
+            np.array_equal(a[0][k], b[0][k]) for k in a[0]):
+        raise AssertionError(f"back end (c): two device runs differ by "
+                             f"{pose_diff(a[0], b[0])} m, chi2 {a[1]!r} vs "
+                             f"{b[1]!r}")
     diff, rel = hold_backends("back end (c), device vs host", out["device"],
                               out["host"], BE_HOST_TOL)
     ate = {k: float(np.sqrt(np.mean(np.sum(
@@ -1846,13 +1879,14 @@ def backend_scale_phase(rows):
          gt[:, :3, 3]) ** 2, axis=1)))) for k, v in out.items()}
     log(f"# back end (c): {n} vertices, {len(links)} links; robust pose "
         f"graph host wall host {walls['host']:.3f} s ({n_rounds['host']} "
-        f"rounds), device {walls['device']:.3f} s ({n_rounds['device']} "
-        f"rounds, K7 launched {k7['device']} times); chi2 host "
-        f"{out['host'][1]:.6g}, device {out['device'][1]:.6g} (rel "
-        f"{rel:.2e}); largest translation difference {diff:.3e} m "
-        f"(tolerance {BE_HOST_TOL['t']}); ATE against the ground truth "
-        f"host {ate['host']:.4f} m, device {ate['device']:.4f} m; the "
-        f"outlier {outlier} ejected by both")
+        f"rounds), device {walls['device']:.3f} s and again "
+        f"{walls['device again']:.3f} s, bit for bit "
+        f"({n_rounds['device']} rounds, K7 launched {k7['device']} times "
+        f"each); chi2 host {out['host'][1]:.6g}, device "
+        f"{out['device'][1]:.6g} (rel {rel:.2e}); largest translation "
+        f"difference {diff:.3e} m (tolerance {BE_HOST_TOL['t']}); ATE "
+        f"against the ground truth host {ate['host']:.4f} m, device "
+        f"{ate['device']:.4f} m; the outlier {outlier} ejected by both")
 
     # K7 against its plain version on the first lambda's system of the
     # first BE_CUT vertices, and at the whole graph's size
@@ -1863,18 +1897,18 @@ def backend_scale_phase(rows):
     cut = hold_k7(f"the first lambda's system of a {BE_CUT}-vertex cut",
                   D, S, B, lam)
     D, S, B, lam = first_system(poses, links, cfg.tau)
-    nf, mf = B.shape[0], B.shape[2]
-    f_ms = time_ms(lambda: DEV.thomas_solve_cuda(D, S, B, lam))
-    f_call = call_ms(lambda: DEV.thomas_solve_cuda(D, S, B, lam))
-    fb_ms, fb_by = bound(*k7_bound(nf, mf))
-    log(f"# K7 at {nf} vertices x {mf} columns (the whole graph's first "
-        f"system): {f_ms:.4f} ms spun ({f_call:.4f} unspun, "
-        f"{f_ms * 1e3 / (2 * nf):.3f} us per step), bound {fb_ms:.5f} ms "
-        f"({fb_by})")
-    rows["thomas"].update(
-        launches_scale=k7["device"], at_cut=cut,
-        at_4541=dict(n=nf, m=mf, ms=f_ms, call_ms=f_call, bound_ms=fb_ms,
-                     bound_by=fb_by, step_us=f_ms * 1e3 / (2 * nf)))
+    whole = hold_k7("the whole graph's first system", D, S, B, lam,
+                    plain=False)
+    rows["thomas"].update(launches_scale=k7["device"], at_cut=cut,
+                          at_4541=whole,
+                          backend_s=[walls["device"], walls["device again"]])
+    if parent:
+        from tpuslam_torch.tools import backend_turns, thomas_probe
+        import os
+        turns = thomas_probe.run(source=os.path.join(
+            parent, "tpuslam_torch", "csrc", "thomas.cu"))
+        be = backend_turns.run(parent)
+        rows["thomas"]["turns"] = dict(k7=turns, backend_s=be["median_s"])
 
 
 # phase 15, the tool apps.  (d) stereo calibration: tests/test_calib.py's
@@ -2741,6 +2775,8 @@ def multi_device_phase(rows, lefts, rights, seq, workdir):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--spread", type=int, default=0)
+    ap.add_argument("--parent", help="a parent tree (unpacked): phase 14 "
+                    "times K7 and the device back end in turns with its")
     args = ap.parse_args()
     smi = device_phase()
     import tpuslam_torch  # noqa: F401  (applies the precision pin)
@@ -2796,7 +2832,7 @@ def main():
         pf_fps = pf_res["fps"]
         rt = realtime_phase(seq, workdir)
         backend_phase(seq, workdir, pf_res, rows)
-        backend_scale_phase(rows)
+        backend_scale_phase(rows, args.parent)
         tools = tool_apps_phase(workdir, rows)
         multi = multi_device_phase(rows, lefts, rights, seq, workdir)
         log(f"# fps: default configuration + Mapper {fps:.3f}, the same "
@@ -2836,8 +2872,9 @@ def main():
         "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
         "library_ms", "via", "tool_launches", "phases", "wide",
         "per_frame", "per_frame_loop_closure", "tool_apps", "dist",
-        "launches_scale",
-        "n", "m", "rel_err", "bit_equal", "step_us", "at_cut", "at_4541")
+        "launches_scale", "n", "m", "bit_equal", "step_us", "forward_ms",
+        "backward_ms", "chain_ms", "at_cut", "at_4541", "backend_s",
+        "turns")
         if k in rows[n]}
         for n in _cuda.ALL]
     print(json.dumps({"kernels": kernels}))

@@ -742,13 +742,15 @@ def _block_tridiagonal(n, m, seed=0):
 
 @pytest.mark.parametrize("n, m", [(2, 1), (2, 13), (61, 1), (61, 13),
                                   (1000, 1), (1000, 13), (61, 37),
-                                  (61, 337), (60, 325), (4540, 13)])
+                                  (61, 337), (61, 900), (60, 325),
+                                  (4540, 13)])
 def test_thomas_kernel(n, m):
     """K7 equals its plain version on the card bit for bit (the two take
     every sum in one order and divide and take square roots as IEEE
     does), and solves the system; 37 columns take two column warps of one
     thread block, 337 (28 Woodbury extras, about the per-frame graph's
-    27) eleven.  (60, 325) and (4540, 13) are the back end's shapes, a
+    27) eleven, 900 three thread blocks, each with its own factor
+    chain.  (60, 325) and (4540, 13) are the back end's shapes, a
     right-hand side beside Woodbury extras' unit block-columns
     (tools/thomas_probe.py random_system): mostly zeros, decaying through
     tiny and subnormal values along the chain (the plain version takes

@@ -302,3 +302,16 @@ def test_degenerate_graphs_return_the_input():
     out, chi2 = run_optimize(p, links, 5, backend="device", device="cpu")
     np.testing.assert_allclose(out[2][:3, 3], [1.0, 0.0, 0.0], atol=1e-4)
     assert chi2 < 1e-6
+
+
+def test_k7_max_cols_is_the_kernels():
+    """The wrapper sizes K7's factor chains (one per thread block) by
+    K7_MAX_COLS: it must be csrc/thomas.cu's MAX_COLS, or the blocks
+    past the first would write beyond L."""
+    import re
+    from pathlib import Path
+    src = (Path(T.__file__).parents[1] / "csrc" / "thomas.cu").read_text()
+    warps = re.search(r"constexpr int MAX_WARPS = (\d+);", src)
+    assert re.search(r"constexpr int MAX_COLS = 32 \* \(MAX_WARPS - 2\);",
+                     src)
+    assert T.K7_MAX_COLS == 32 * (int(warps.group(1)) - 2)

@@ -33,8 +33,6 @@ tpuslam (tests/test_torch_config.py keeps them equal).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..kernels import _cuda
@@ -540,11 +538,16 @@ def _mm6(A, B):
     return acc
 
 
+# columns of B that one thread block of K7 takes, each block with its own
+# factor chain: csrc/thomas.cu's MAX_COLS
+K7_MAX_COLS = 448
+
+
 def thomas_solve_cuda(D, S, B, lam):
     """Kernel K7: _thomas_solve in one launch (csrc/thomas.cu): a thread
-    block per 992 columns of B, in which one warp runs the factor chain
-    and the columns, a lane each, follow it a few vertices behind, forward
-    and back; lam is a 0-d f32 tensor on the card."""
+    block per K7_MAX_COLS columns of B, in which one warp runs the factor
+    chain and the columns, a lane each, follow it a few vertices behind,
+    forward and back; lam is a 0-d f32 tensor on the card."""
     _cuda.expect(D, "D", torch.float32, 3)
     _cuda.expect(S, "S", torch.float32, 3)
     _cuda.expect(B, "B", torch.float32, 3)
@@ -555,9 +558,7 @@ def thomas_solve_cuda(D, S, B, lam):
         raise ValueError(f"thomas: D {tuple(D.shape)}, S {tuple(S.shape)}, "
                          f"B {tuple(B.shape)} are not (n,6,6), (n-1,6,6), "
                          f"(n,6,m)")
-    # a factor chain for each thread block (csrc/thomas.cu)
-    chains = _cuda.function("thomas", "tpuslam_thomas_chains",
-                            [ctypes.c_int])(B.shape[2])
+    chains = -(-B.shape[2] // K7_MAX_COLS)      # one per thread block
     L = torch.empty((chains, n, 48), dtype=torch.float32, device=D.device)
     G = torch.empty_like(B)                   # the forward pass's g_k
     X = torch.empty_like(B)

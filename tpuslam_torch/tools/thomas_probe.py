@@ -3,7 +3,7 @@ build, its forward and backward passes timed apart, and another version
 of its source timed in turns with it.
 
     python -m tpuslam_torch.tools.thomas_probe [--source FILE] [--turns N]
-        [--sass DIR] [--shapes 4540x13 999x1 60x325] [--variant NAME=FLAGS]
+        [--sass DIR] [--shapes 4540x13 999x1 60x325]
 
 Builds csrc/thomas.cu and, with --source, FILE (another version of it
 with the same launcher `tpuslam_thomas`, e.g. a parent's from an
@@ -13,8 +13,7 @@ At the back end's shapes each version is held to the plain version
 (`optim.device._thomas_solve`, bit for bit) and timed behind the spin of
 tools/timing.py: the whole solve and, where the source has
 `tpuslam_thomas_stage`, the solve cut after its forward pass; the
-versions in turns (FILE, this, this, FILE), N times.  --variant also
-builds csrc/thomas.cu with other flags (its K7_* shape macros).  The shapes:
+versions in turns (FILE, this, this, FILE), N times.  The shapes:
 4540 x 13, the first LM system of chip_smoke.py's KITTI-00-sized graph
 (4541 vertices, one Woodbury extra), where the plain version would take
 minutes and the versions are held to each other; 999 x 1, the same
@@ -139,17 +138,17 @@ def systems(shapes=SHAPES):
 
 
 def build(sources):
-    """{name: (library, ptxas report, path)} of each (name, .cu path,
-    extra nvcc flags), built in parallel with K7's flags and
-    `-Xptxas -v`.  The report: per kernel (its mangled name) registers,
-    shared memory bytes, spill store and load bytes."""
+    """{name: (library, ptxas report, path)} of each (name, .cu path),
+    built in parallel with K7's flags and `-Xptxas -v`.  The report: per
+    kernel (its mangled name) registers, shared memory bytes, spill store
+    and load bytes."""
     out_dir = _cuda.BUILD_ROOT / "thomas_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, src, extra in sources:
+    for name, src in sources:
         out = out_dir / f"lib{name}.so"
         cmd = ([_cuda._nvcc()] + _cuda.NVCC_FLAGS +
-               _cuda.EXTRA_FLAGS["thomas"] + list(extra) +
+               _cuda.EXTRA_FLAGS["thomas"] +
                ["-Xptxas", "-v", "-o", str(out), str(src)])
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), out)
@@ -245,16 +244,13 @@ def sass(lib_path, out_path):
     return text
 
 
-def run(source=None, turns=1, shapes=SHAPES, sass_dir=None, variants=()):
+def run(source=None, turns=1, shapes=SHAPES, sass_dir=None):
     """Build, hold and time; returns the rows (one per shape and
-    version).  `variants`: (name, extra nvcc flags) builds of
-    csrc/thomas.cu beside it (other K7_* shapes)."""
+    version)."""
     from ..optim import device as DEV
-    versions = [("this", _cuda.CSRC / "thomas.cu", [])]
-    versions += [(name, _cuda.CSRC / "thomas.cu", flags.split())
-                 for name, flags in variants]
+    versions = [("this", _cuda.CSRC / "thomas.cu")]
     if source:
-        versions.append(("other", Path(source), []))
+        versions.append(("other", Path(source)))
     built = build(versions)
     for name, (_, report, path) in built.items():
         for kern, r in report.items():
@@ -323,9 +319,6 @@ def main(argv=None):
     ap.add_argument("--sass", help="write the kernels' SASS to this "
                     "directory")
     ap.add_argument("--shapes", nargs="*", default=list(SHAPES))
-    ap.add_argument("--variant", action="append", default=[],
-                    metavar="NAME=FLAGS", help="also csrc/thomas.cu built "
-                    "with these nvcc flags, e.g. wide=-DK7_WARPS=32")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("thomas_probe: needs a CUDA device")
@@ -333,8 +326,7 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"# card: {smi}", flush=True)
-    rows = run(args.source, args.turns, args.shapes, args.sass,
-               [v.split("=", 1) for v in args.variant])
+    rows = run(args.source, args.turns, args.shapes, args.sass)
     print(json.dumps({"card": smi, "rows": rows}))
 
 
