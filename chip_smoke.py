@@ -25,7 +25,8 @@ tpuslam.  Phases, each of which raises on failure:
    equal to its plain twin (the full one also to K1), each timed; then
    K1's wide kernel, which runs the configurations its tiled kernel cannot
    take (another disparity count, a block beyond 31, costs past uint16),
-   on one frame at three of them, each equal to its plain twin, timed;
+   at six of them on one frame and at 128 disparities on the chunk, each
+   equal to its plain twin, timed, with its launch shape and occupancy;
 5. main path: what bench.py runs -- FastSlamPipeline.run_staged over the
    120 frames in SlamConfig() with a Mapper (async loop closure, device
    dictionary), once warm and once timed, every counter reset just before
@@ -494,33 +495,42 @@ def k1_phases_phase(rows, lefts, rights, cfg):
 
 # configurations outside K1's tiled kernel, which K1 runs in its wide
 # kernel (the reference's strip kernel takes each): StereoBMConfig keywords
-K1_WIDE = {"ndisp32": dict(num_disparities=32),
-           "block33": dict(prefilter_cap=15, block_size=33),
-           "cost": dict(prefilter_cap=63, block_size=23)}
+# and the frames of the chunk it runs on
+K1_WIDE = {"ndisp1": (dict(num_disparities=1), 1),
+           "ndisp32": (dict(num_disparities=32), 1),
+           "ndisp80": (dict(num_disparities=80), 1),
+           "block33": (dict(prefilter_cap=15, block_size=33), 1),
+           "block51": (dict(prefilter_cap=31, block_size=51), 1),
+           "cost": (dict(prefilter_cap=63, block_size=23), 1),
+           "ndisp128": (dict(num_disparities=128, min_disparity=-5), CHUNK)}
 
 
 def k1_wide_phase(rows, lefts, rights):
-    """K1's wide kernel at each K1_WIDE configuration on the first frame
-    of the chunk, held bit for bit to its plain twin on the card and
-    timed (spun; a main-path run never launches it).  Bound as K1's: the
-    pair in, disparity and min-SAD out (8 B), 6 operations per pixel and
+    """K1's wide kernel at each K1_WIDE configuration, on the first frame
+    of the chunk or the whole chunk, held bit for bit to its plain twin on
+    the card and timed (a main-path run never launches it), with its
+    launch shape and occupancy.  Bound as K1's: the pair in, disparity
+    and min-SAD out (8 B a pixel), 6 operations per pixel and
     disparity."""
     from tpuslam_torch.config import StereoBMConfig
     from tpuslam_torch.kernels import stereo_bm as BM
-    lb, rb = lefts[:1].contiguous(), rights[:1].contiguous()
-    px = lb.numel()
     wide = {}
-    for case, kw in K1_WIDE.items():
+    for case, (kw, frames) in K1_WIDE.items():
         cfg = StereoBMConfig(**kw)
         if BM.k1_tiled_refusal(cfg) is None:
             raise AssertionError(f"K1 wide, {case}: the tiled kernel "
                                  f"takes it")
-        wide[case] = hold(
+        lb, rb = lefts[:frames].contiguous(), rights[:frames].contiguous()
+        px = lb.numel()
+        nbytes, ops = 8 * px, 6 * cfg.num_disparities * px
+        wide[case] = dict(hold(
             "stereo_bm", lambda: BM.stereo_bm_cuda(lb, rb, cfg),
             lambda: BM.stereo_bm_plain(lb, rb, cfg),
             BM.stereo_bm_cuda(lb, rb, cfg), BM.stereo_bm_plain(lb, rb, cfg),
-            8 * px, 6 * cfg.num_disparities * px,
-            what=f" (wide kernel, {case}, one frame)")
+            nbytes, ops, what=f" (wide kernel, {case}, {frames} frames)"),
+            frames=frames, bytes=nbytes, ops=ops,
+            shape=BM.stereo_bm_wide_shape(cfg))
+        log(f"# stereo_bm wide kernel, {case}: {wide[case]['shape']}")
     rows["stereo_bm"]["wide"] = wide
 
 

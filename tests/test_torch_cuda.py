@@ -18,7 +18,8 @@ counters that the default configuration's chunk step, and a Mapper run
 whose loop closure fires, launch the kernels and no plain version; a
 third does so for the batch app (the per-frame path), and the speckle
 filter on the card is held to the CPU bit for bit.  Configurations outside
-K1's tiled kernel run in its wide kernel and equal its plain twin; GFTT
+K1's tiled kernel run in its wide kernel (staged, or its global variant
+at a radius whose tile exceeds shared memory) and equal its plain twin; GFTT
 outside K2's block size runs the plain version on the card and equals the
 CPU; run_ingest on the card equals run_staged on the same written frames.
 The depth engines outside the kernels: SGBM on the card equals the CPU
@@ -506,13 +507,19 @@ def test_batch_app_runs_kernels_and_closes_a_loop(tmp_path):
 
 # configurations outside K1's tiled kernel, which K1 runs in its wide
 # kernel (the reference's strip kernel takes each): StereoBMConfig keywords
-K1_WIDE = {"ndisp32": dict(num_disparities=32),
+K1_WIDE = {"ndisp1": dict(num_disparities=1),
+           "ndisp32": dict(num_disparities=32),
+           "ndisp80": dict(num_disparities=80),
            "ndisp128": dict(num_disparities=128, min_disparity=-5),
            "block33": dict(prefilter_cap=15, block_size=33),
+           "block51": dict(prefilter_cap=31, block_size=51),
            "block20": dict(block_size=20),
            "block1": dict(block_size=1, uniqueness_ratio=0),
            "cost": dict(prefilter_cap=63, block_size=23),
-           "sawtooth_cost": dict(prefilter_cap=63, block_size=25)}
+           "sawtooth_cost": dict(prefilter_cap=63, block_size=25),
+           "odd_crop": dict(num_disparities=16, block_size=9)}
+# cases run on a crop of the pair (rows, columns): a multiple of no tile
+K1_WIDE_CROPS = {"odd_crop": (37, 203)}
 
 
 @pytest.mark.parametrize("case", list(K1_WIDE))
@@ -526,6 +533,9 @@ def test_k1_wide_kernel(pair, case):
     cfg = StereoBMConfig(**K1_WIDE[case])
     assert T.k1_tiled_refusal(cfg) is not None
     args = _sawtooth_pair() if case == "sawtooth_cost" else pair
+    if case in K1_WIDE_CROPS:
+        h, w = K1_WIDE_CROPS[case]
+        args = tuple(t[:, :h, :w].contiguous() for t in args)
     _cuda.reset_counters()
     kd, ks = T.stereo_bm_cuda(*args, cfg)
     pd, ps = T.stereo_bm_plain(*args, cfg)
@@ -535,12 +545,29 @@ def test_k1_wide_kernel(pair, case):
         assert int(ps.max()) > 65535
     else:
         assert (pd >= 0).float().mean() > 0.05
+    assert T.stereo_bm_wide_shape(cfg)["staged"] == 1
     _cuda.reset_counters()
     got = T.stereo_bm(*args, cfg)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["stereo_bm"] == 1 and _cuda.LAUNCHES["lr_check"] == 1
     assert not any(_cuda.PLAIN_CALLS.values())
     assert torch.equal(got.cpu(), T.stereo_bm(*(t.cpu() for t in args), cfg))
+
+
+def test_k1_wide_global_kernel(pair):
+    """A block whose staged tile exceeds the card's shared memory per
+    block (321: r = 160) runs in the wide kernel's global variant, equal
+    to the plain version."""
+    from tpuslam_torch.config import StereoBMConfig
+    from tpuslam_torch.kernels import stereo_bm as T
+    cfg = StereoBMConfig(block_size=321)
+    shape = T.stereo_bm_wide_shape(cfg)
+    assert shape["staged"] == 0 and shape["blocks_per_sm"] > 0
+    kd, ks = T.stereo_bm_cuda(*pair, cfg)
+    pd, ps = T.stereo_bm_plain(*pair, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ks, ps)
+    assert (pd >= 0).sum() > 0
 
 
 # a configuration outside K2's envelope (tpuslam computes it on its XLA

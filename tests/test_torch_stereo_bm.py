@@ -80,6 +80,36 @@ def test_disparity_bit_equal_small_config(rng):
                                   _ref(left, right, **kw))
 
 
+# configurations that K1 runs in its wide kernel (its tiled kernel
+# refuses each): the plain version, the wide kernel's twin on the card,
+# against tpuslam's stereo_bm
+WIDE_CONFIGS = {"ndisp32": dict(num_disparities=32),
+                "ndisp128": dict(num_disparities=128, min_disparity=-5),
+                "block33": dict(prefilter_cap=15, block_size=33),
+                "block20": dict(block_size=20),
+                "block1": dict(block_size=1, uniqueness_ratio=0),
+                "cost": dict(prefilter_cap=63, block_size=23)}
+
+
+@pytest.fixture(scope="module")
+def wide_crop(stereo_pair):
+    """64 rows x 320 columns of the fixture pair: wide enough that 128
+    disparities and the halo leave valid pixels."""
+    left, right = stereo_pair
+    return (np.ascontiguousarray(left[200:264, 160:480]),
+            np.ascontiguousarray(right[200:264, 160:480]))
+
+
+@pytest.mark.parametrize("case", list(WIDE_CONFIGS))
+def test_wide_configurations_bit_equal(wide_crop, case):
+    kw = WIDE_CONFIGS[case]
+    assert T.k1_tiled_refusal(StereoBMConfig(**kw)) is not None
+    ref = _ref(*wide_crop, **kw)
+    disp, _ = _port(*wide_crop, **kw)
+    np.testing.assert_array_equal(disp, ref)
+    assert (ref >= 0).sum() > 0
+
+
 def test_batch_dispatch_uses_plain_on_cpu(stereo_pair):
     from tpuslam_torch.kernels import _cuda
     left, right = _pair(stereo_pair, 96)

@@ -47,12 +47,13 @@
 //
 // Every other configuration the reference's strip kernel takes (another
 // disparity count, a block beyond 31 or even, costs past uint16) runs in
-// K1's wide kernel, `bm_wide_kernel`: a thread per output pixel sums each
-// (2r+1)^2 window directly from the prefiltered images in int32 and
-// walks the disparities once, keeping only what the epilogue reads (see
-// there), so it needs no cost store and no limit on ndisp or r.  It is
-// plain and slow (ndisp * (2r+1)^2 taps per pixel): the main path never
-// takes it.
+// K1's wide kernel, `bm_wide_kernel` (see there): the same staged tile
+// and running vertical sums, in int32 and in dynamic shared memory sized
+// from r at launch, a running horizontal sum along each row, the right
+// image staged per chunk of planes and each group of costs folded at once
+// into a one-pass walk over d that keeps only what the epilogue reads, so
+// it needs no cost store and has no limit on ndisp, r or the cost.  The
+// main path never takes it.
 //
 // The phase harness (tpuslam_stereo_bm_phase) replaces the TPU timing
 // probe tools/probe_bm_parts.py:148 (the strip kernel cut after each of
@@ -262,41 +263,45 @@ bm_kernel(const uint8_t* __restrict__ lp, const uint8_t* __restrict__ rp,
 }
 
 // K1's wide kernel: any disparity count (>= 1), any radius (>= 0), int32
-// costs; same outputs as bm_kernel<FULL>.  One pass over d ascending
-// keeps the winner (ties to the larger d, as the first minimum in the
-// reversed order), the costs at its two neighbours (0 outside
-// [0, ndisp), as in the plain version) and the least cost at least two
-// steps from it: `pref`, the least cost at 0..d-2, becomes that minimum
-// when d wins, and every later cost beyond the winner's right neighbour
-// joins it.
-__global__ void __launch_bounds__(NT)
-bm_wide_kernel(const uint8_t* __restrict__ lp,
-               const uint8_t* __restrict__ rp, int16_t* __restrict__ disp,
-               int* __restrict__ minsad_out, int H, int W, int ndisp, int r,
-               int mindisp, int ftzero, int uniq, int tex_thr) {
-  const int x = blockIdx.x * TX + threadIdx.x;
-  const int y = blockIdx.y * TY + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const long frame = (long)blockIdx.z * H * W;
-  const uint8_t* L = lp + frame;
-  const uint8_t* R = rp + frame;
-  // the window, cut to the image: pixels outside it add 0
-  const int ya = max(y - r, 0), yb = min(y + r, H - 1);
-  const int xa = max(x - r, 0), xb = min(x + r, W - 1);
-  int tex = 0;
-  for (int yy = ya; yy <= yb; ++yy)
-    for (int xx = xa; xx <= xb; ++xx)
-      tex += abs((int)L[(long)yy * W + xx] - ftzero);
+// costs; same outputs as bm_kernel<FULL>.  A block of 32x8 threads takes a
+// 32 x TYW output tile of one frame (TYW = 8 * PIX rows, PIX pixels a
+// thread, rows ty + 8i), stages the tile's left rows with their box halo
+// once and the right rows per chunk of `dc` planes (the columns the
+// chunk's shifts reach), and walks the planes in groups of `gp`: the
+// texture plane |L - ftzero| first, then d = 0, 1, ..., ndisp - 1.  Per
+// group, three steps between barriers:
+// - the vertical pass: a thread per (plane, staged column) forms its TYW
+//   vertical (2r+1)-row sums as a running int32 sum;
+// - the horizontal pass: a thread per (plane, output row) runs the
+//   (2r+1)-column window along the row's 32 outputs, one sum in and one
+//   out a step, and writes the group's costs;
+// - the fold: each pixel's thread feeds its costs, in ascending d, into
+//   its one-pass walk, so no cost outlives its group.
+// Rows and columns outside the image add 0: such a column's sums are 0,
+// and the running sum takes only the staged rows inside the image (a
+// condition the whole block shares), so every sum equals the plain
+// version's zero-padded box sum exactly.  Shapes (wide_shape): PIX from r,
+// gp about two columns of vertical work a thread, dc about 64 planes, all
+// in dynamic shared memory; where the staged tile does not fit the card's
+// limit even at 8 rows and one plane a group, bm_wide_global_kernel takes
+// the launch.  What bounds it on this card: instruction throughput, as
+// the tiled kernel, mostly the vertical pass's ~5 terms (two byte loads each)
+// a pixel and plane at r = 10; no cost leaves the block.
+
+constexpr int WIDE_CHUNK = 64;    // right-image planes staged at once (about)
+constexpr int WIDE_COLS = 256;    // the global kernel's column chunk
+
+// The one pass over d ascending keeps the winner (ties to the larger d,
+// as the first minimum in the reversed order), the costs at its two
+// neighbours (0 outside [0, ndisp), as in the plain version) and the
+// least cost at least two steps from it: `pref`, the least cost at
+// 0..d-2, becomes that minimum when d wins, and every later cost beyond
+// the winner's right neighbour joins it.
+struct Walk {
   int best = INT_MAX, bd = 0, below = 0, above = 0, far = INT_MAX;
   int prev = 0, prev2 = 0, pref = INT_MAX;
-  for (int d = 0; d < ndisp; ++d) {
-    int c = 0;
-    for (int yy = ya; yy <= yb; ++yy) {
-      const uint8_t* Lr = L + (long)yy * W;
-      const uint8_t* Rr = R + (long)yy * W;
-      for (int xx = xa; xx <= xb; ++xx)   // right pixels left of 0 are 0
-        c += abs((int)Lr[xx] - (xx >= d ? (int)Rr[xx - d] : 0));
-    }
+
+  __device__ __forceinline__ void step(int c, int d) {
     if (d >= 2) pref = min(pref, prev2);
     if (c <= best) {
       best = c; bd = d; below = d > 0 ? prev : 0; above = 0; far = pref;
@@ -308,20 +313,277 @@ bm_wide_kernel(const uint8_t* __restrict__ lp,
     prev2 = prev;
     prev = c;
   }
-  const bool uniq_ok = uniq <= 0 || far > best + (best * uniq) / 100;
+};
+
+// the uniqueness test, the subpixel step and the validity test of pixel
+// (x, y), written at o
+__device__ __forceinline__ void wide_epilogue(
+    const Walk& w, int tex, int x, int y, long o, int H, int W, int ndisp,
+    int r, int mindisp, int uniq, int tex_thr, int16_t* __restrict__ disp,
+    int* __restrict__ minsad_out) {
+  const int best = w.best, bd = w.bd;
+  const bool uniq_ok = uniq <= 0 || w.far > best + (best * uniq) / 100;
   // in the reversed order: sad_n at d + 1, sad_p at d - 1, each taking
   // the other at the ends
-  const int sad_n = (bd == ndisp - 1) ? below : above;
-  const int sad_p = (bd == 0) ? above : below;
+  const int sad_n = (bd == ndisp - 1) ? w.below : w.above;
+  const int sad_p = (bd == 0) ? w.above : w.below;
   const int denom = sad_p + sad_n - 2 * best + abs(sad_p - sad_n);
   const int num = (sad_p - sad_n) * 256;
   const int frac = (denom != 0) ? num / denom : 0;   // C truncation
   const int v = ((bd + mindisp) * 256 + frac + 15) >> 4;
   const bool valid = y >= r && y < H - r && x >= mindisp + ndisp - 1 + r &&
                      x < W - r && tex >= tex_thr && uniq_ok;
-  const long o = frame + (long)y * W + x;
   disp[o] = (int16_t)(valid ? v : (mindisp - 1) * 16);
   minsad_out[o] = best;
+}
+
+// One staged column's vertical (2r+1)-row sums for output rows
+// 0..rows_out-1 into V[0], V[stride], ...: the window of output row oy is
+// staged rows oy..oy+2r, of which only [ylo, yhi) lie inside the image;
+// term(yy) is the plane's term at staged row yy.
+template <typename Term>
+__device__ __forceinline__ void vertical_sums(Term term, int* V, int stride,
+                                              int rows_out, int win, int ylo,
+                                              int yhi) {
+  int s = 0;
+  for (int yy = ylo; yy < min(yhi, win); ++yy) s += term(yy);
+  V[0] = s;
+  for (int oy = 1; oy < rows_out; ++oy) {
+    const int add = oy - 1 + win, sub = oy - 1;
+    if (add >= ylo && add < yhi) s += term(add);
+    if (sub >= ylo && sub < yhi) s -= term(sub);
+    V[oy * stride] = s;
+  }
+}
+
+template <int PIX>
+__global__ void __launch_bounds__(NT)
+bm_wide_kernel(const uint8_t* __restrict__ lp,
+               const uint8_t* __restrict__ rp, int16_t* __restrict__ disp,
+               int* __restrict__ minsad_out, int H, int W, int ndisp, int r,
+               int mindisp, int ftzero, int uniq, int tex_thr, int gp,
+               int dc) {
+  constexpr int TYW = TY * PIX;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const int win = 2 * r + 1;
+  const int lcols = TX + 2 * r, rows = TYW + 2 * r, rcols = lcols + dc - 1;
+  // odd row strides: a thread of the horizontal pass walks a row apiece
+  const int vs = lcols + 1, cs = TX + 1;
+  int* Vs = (int*)wide_smem;                          // [gp][TYW][vs]
+  int* Cs = Vs + (size_t)gp * TYW * vs;               // [gp][TYW][cs]
+  uint8_t* Ls = (uint8_t*)(Cs + (size_t)gp * TYW * cs);     // [rows][lcols]
+  uint8_t* Rs = Ls + (size_t)rows * lcols;                  // [rows][rcols]
+
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TYW;
+  const long frame = (long)blockIdx.z * H * W;
+  const uint8_t* L = lp + frame;
+  const uint8_t* R = rp + frame;
+  // staged row yy is image row y0 - r + yy: inside the image on [ylo, yhi)
+  const int ylo = max(0, r - y0), yhi = min(rows, H - y0 + r);
+  for (int i = ylo * lcols + tid; i < yhi * lcols; i += NT) {
+    const int yy = i / lcols, x = x0 - r + i % lcols;
+    Ls[i] = (x >= 0 && x < W) ? L[(long)(y0 - r + yy) * W + x] : 0;
+  }
+
+  Walk w[PIX];
+  int tex[PIX] = {};
+  int rbase = 0;
+  for (int p0 = 0; p0 <= ndisp; p0 += gp) {   // plane p is d = p - 1
+    const int np = min(gp, ndisp + 1 - p0);
+    if (p0 % dc == 0) {
+      // the chunk's planes p0..p0+dc-1 reach right staged column
+      // xx - d + rbase from left staged column xx; right pixels left of
+      // the image are 0
+      rbase = p0 + dc - 2;
+      const int xr = x0 - r - rbase;
+      for (int i = ylo * rcols + tid; i < yhi * rcols; i += NT) {
+        const int yy = i / rcols, x = xr + i % rcols;
+        Rs[i] = (x >= 0 && x < W) ? R[(long)(y0 - r + yy) * W + x] : 0;
+      }
+      __syncthreads();
+    }
+    for (int i = tid; i < np * lcols; i += NT) {
+      const int g = i / lcols, xx = i % lcols;
+      const int d = p0 + g - 1, x = x0 - r + xx;
+      int* V = Vs + (size_t)g * TYW * vs + xx;
+      if (x < 0 || x >= W) {           // a column outside the image adds 0
+        for (int oy = 0; oy < TYW; ++oy) V[oy * vs] = 0;
+      } else if (d < 0) {
+        vertical_sums(
+            [&](int yy) { return abs(Ls[yy * lcols + xx] - ftzero); }, V,
+            vs, TYW, win, ylo, yhi);
+      } else {
+        const uint8_t* Rc = Rs + (xx - d + rbase);
+        vertical_sums([&](int yy) {
+          return abs((int)Ls[yy * lcols + xx] - (int)Rc[yy * rcols]);
+        }, V, vs, TYW, win, ylo, yhi);
+      }
+    }
+    __syncthreads();
+    // the horizontal pass: a thread per (plane, output row) runs the
+    // window along the row's TX outputs, one column in and one out a step
+    for (int i = tid; i < np * TYW; i += NT) {
+      const int* V = Vs + (size_t)i * vs;
+      int* C = Cs + i * cs;
+      int c = 0;
+      for (int t = 0; t < win; ++t) c += V[t];
+#pragma unroll 4
+      for (int ox = 0; ox < TX - 1; ++ox) {
+        C[ox] = c;
+        c += V[ox + win] - V[ox];
+      }
+      C[TX - 1] = c;
+    }
+    __syncthreads();
+    for (int q = 0; q < np; ++q) {
+      const int d = p0 + q - 1;
+      const int* C = Cs + (q * TYW + ty) * cs + tx;
+#pragma unroll
+      for (int i = 0; i < PIX; ++i) {
+        if (d < 0) tex[i] = C[i * TY * cs];
+        else w[i].step(C[i * TY * cs], d);
+      }
+    }
+  }
+  const int x = x0 + tx;
+#pragma unroll
+  for (int i = 0; i < PIX; ++i) {
+    const int y = y0 + ty + TY * i;
+    if (x < W && y < H)
+      wide_epilogue(w[i], tex[i], x, y, frame + (long)y * W + x, H, W, ndisp,
+                    r, mindisp, uniq, tex_thr, disp, minsad_out);
+  }
+}
+
+// The wide kernel for a radius whose staged tile exceeds shared memory:
+// 32x8 pixels a block, one plane at a time, the vertical pass reading the
+// images from global memory in chunks of WIDE_COLS staged columns, each
+// chunk's part of every window added to the pixel's sum.
+__global__ void __launch_bounds__(NT)
+bm_wide_global_kernel(const uint8_t* __restrict__ lp,
+                      const uint8_t* __restrict__ rp,
+                      int16_t* __restrict__ disp,
+                      int* __restrict__ minsad_out, int H, int W, int ndisp,
+                      int r, int mindisp, int ftzero, int uniq,
+                      int tex_thr) {
+  __shared__ int Vg[TY][WIDE_COLS];
+  const int win = 2 * r + 1, lcols = TX + 2 * r, rows = TY + 2 * r;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+  const long frame = (long)blockIdx.z * H * W;
+  const uint8_t* L = lp + frame;
+  const uint8_t* R = rp + frame;
+  const int ylo = max(0, r - y0), yhi = min(rows, H - y0 + r);
+  Walk w;
+  int tex = 0;
+  for (int d = -1; d < ndisp; ++d) {
+    int c = 0;
+    for (int c0 = 0; c0 < lcols; c0 += WIDE_COLS) {
+      const int n = min(WIDE_COLS, lcols - c0);
+      for (int i = tid; i < n; i += NT) {
+        const int x = x0 - r + c0 + i;
+        int* V = &Vg[0][i];
+        if (x < 0 || x >= W) {
+          for (int oy = 0; oy < TY; ++oy) V[oy * WIDE_COLS] = 0;
+          continue;
+        }
+        const uint8_t* Lc = L + (long)(y0 - r) * W + x;
+        const uint8_t* Rc = R + (long)(y0 - r) * W + x - d;
+        vertical_sums([&](int yy) {       // right pixels left of 0 are 0
+          const int rv = d < 0 ? ftzero
+                               : x >= d ? (int)Rc[(long)yy * W] : 0;
+          return abs((int)Lc[(long)yy * W] - rv);
+        }, V, WIDE_COLS, TY, win, ylo, yhi);
+      }
+      __syncthreads();
+      for (int t = max(tx, c0); t < min(tx + win, c0 + n); ++t)
+        c += Vg[ty][t - c0];
+      __syncthreads();
+    }
+    if (d < 0) tex = c;
+    else w.step(c, d);
+  }
+  const int x = x0 + tx, y = y0 + ty;
+  if (x < W && y < H)
+    wide_epilogue(w, tex, x, y, frame + (long)y * W + x, H, W, ndisp, r,
+                  mindisp, uniq, tex_thr, disp, minsad_out);
+}
+
+// The wide kernel's launch shape: pixel rows a thread (PIX; 0 for the
+// global kernel), planes a group, planes a right-image chunk (a multiple
+// of the group) and dynamic shared bytes.
+struct WideShape {
+  int pix, gp, dc;
+  size_t smem;
+};
+
+size_t wide_bytes(int pix, int gp, int dc, int r) {
+  const size_t lcols = TX + 2 * r, rows = TY * pix + 2 * r;
+  return (size_t)gp * TY * pix * (lcols + 1 + TX + 1) * sizeof(int) +
+         rows * lcols + rows * (lcols + dc - 1);
+}
+
+// Taller tiles amortise the vertical halo where r is large; about two
+// columns of vertical work a thread per group; the right image restaged
+// every ~WIDE_CHUNK planes.  Shrinks the planes a group, then the tile,
+// until the card's shared memory per block (max_smem) holds it.
+WideShape wide_shape(int ndisp, int r, size_t max_smem) {
+  const int planes = ndisp + 1, lcols = TX + 2 * r;
+  for (int pix = r <= 3 ? 1 : r <= 12 ? 2 : 4; pix >= 1; pix /= 2) {
+    for (int gp = max(1, min(2 * NT / lcols, planes)); gp >= 1; --gp) {
+      const int dc = gp * ((min(WIDE_CHUNK, planes) + gp - 1) / gp);
+      for (int d = dc; d >= gp; d -= gp) {
+        const size_t smem = wide_bytes(pix, gp, d, r);
+        if (smem <= max_smem) return {pix, gp, d, smem};
+      }
+    }
+  }
+  return {0, 1, 1, 0};
+}
+
+cudaError_t wide_shape_here(int ndisp, int r, WideShape* s) {
+  int dev = 0, max_smem = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) *s = wide_shape(ndisp, r, (size_t)max_smem);
+  return e;
+}
+
+using WideKernel = void (*)(const uint8_t*, const uint8_t*, int16_t*, int*,
+                           int, int, int, int, int, int, int, int, int, int);
+
+// the staged wide kernel of s.pix pixel rows a thread (s.pix > 0)
+WideKernel wide_kernel(const WideShape& s) {
+  return s.pix == 4 ? bm_wide_kernel<4>
+                   : s.pix == 2 ? bm_wide_kernel<2> : bm_wide_kernel<1>;
+}
+
+cudaError_t launch_wide(const uint8_t* lp, const uint8_t* rp, int16_t* disp,
+                        int* minsad, int B, int H, int W, int ndisp, int r,
+                        int mindisp, int ftzero, int uniq, int tex_thr,
+                        cudaStream_t st) {
+  WideShape s;
+  cudaError_t e = wide_shape_here(ndisp, r, &s);
+  if (e != cudaSuccess) return e;
+  const int rows = TY * (s.pix ? s.pix : 1);
+  dim3 grid((W + TX - 1) / TX, (H + rows - 1) / rows, B);
+  if (!s.pix) {
+    bm_wide_global_kernel<<<grid, dim3(TX, TY), 0, st>>>(
+        lp, rp, disp, minsad, H, W, ndisp, r, mindisp, ftzero, uniq,
+        tex_thr);
+    return cudaGetLastError();
+  }
+  WideKernel k = wide_kernel(s);
+  e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)s.smem);
+  if (e != cudaSuccess) return e;
+  k<<<grid, dim3(TX, TY), s.smem, st>>>(lp, rp, disp, minsad, H, W, ndisp,
+                                        r, mindisp, ftzero, uniq, tex_thr,
+                                        s.gp, s.dc);
+  return cudaGetLastError();
 }
 
 // Launch 2 cut after STOP runs at bm_kernel<FULL>'s occupancy: a cut
@@ -410,17 +672,16 @@ extern "C" int tpuslam_stereo_bm(const void* left, const void* right,
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
   launch_prefilter(left, right, lp_scratch, rp_scratch, B, H, W, ftzero, s);
-  dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
   if (wide)
-    bm_wide_kernel<<<grid, dim3(TX, TY), 0, s>>>(
-        (const uint8_t*)lp_scratch, (const uint8_t*)rp_scratch,
-        (int16_t*)disp, (int*)minsad, H, W, ndisp, r, mindisp, ftzero, uniq,
-        tex_thr);
-  else
-    bm_kernel<FULL><<<grid, dim3(TX, TY), 0, s>>>(
-        (const uint8_t*)lp_scratch, (const uint8_t*)rp_scratch,
-        (int16_t*)disp, (int*)minsad, H, W, r, mindisp, ftzero, uniq,
-        tex_thr);
+    return (int)launch_wide((const uint8_t*)lp_scratch,
+                            (const uint8_t*)rp_scratch, (int16_t*)disp,
+                            (int*)minsad, B, H, W, ndisp, r, mindisp, ftzero,
+                            uniq, tex_thr, s);
+  dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
+  bm_kernel<FULL><<<grid, dim3(TX, TY), 0, s>>>(
+      (const uint8_t*)lp_scratch, (const uint8_t*)rp_scratch,
+      (int16_t*)disp, (int*)minsad, H, W, r, mindisp, ftzero, uniq,
+      tex_thr);
   return (int)cudaGetLastError();
 }
 
@@ -463,4 +724,37 @@ extern "C" int tpuslam_stereo_bm_phase_occupancy(int phase, int* out) {
     }
     return e;
   });
+}
+
+// K1's wide kernel for ndisp disparities at radius r on the current card:
+// output rows a block, planes a group, planes a right-image chunk, whether
+// the tile is staged (0: bm_wide_global_kernel), shared bytes per block
+// (dynamic and static), registers per thread and blocks per SM, into
+// out[0..6].
+extern "C" int tpuslam_stereo_bm_wide_shape(int ndisp, int r, int* out) {
+  if (ndisp < 1 || r < 0) return (int)cudaErrorInvalidValue;
+  WideShape s;
+  cudaError_t e = wide_shape_here(ndisp, r, &s);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  int blocks = 0;
+  if (s.pix) {
+    WideKernel k = wide_kernel(s);
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)s.smem);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, NT,
+                                                        s.smem);
+  } else {
+    e = cudaFuncGetAttributes(&a, bm_wide_global_kernel);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, bm_wide_global_kernel, NT, 0);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int vals[7] = {TY * (s.pix ? s.pix : 1), s.gp, s.dc, s.pix > 0,
+                       (int)(s.smem + a.sharedSizeBytes), a.numRegs, blocks};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return 0;
 }

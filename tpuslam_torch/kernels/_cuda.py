@@ -39,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -137,6 +138,41 @@ def build_all(names=ALL) -> dict[str, float]:
                                f"{log.decode(errors='replace')}")
         os.replace(tmp, out)
     return took
+
+
+def build_versions(src: str, versions) -> dict:
+    """{name: (library, ptxas report, path)} of each (name, .cu path) in
+    `versions`, versions of csrc/<src>.cu built in parallel with its flags
+    and `-Xptxas -v` into build/tpuslam_torch/<src>_probe/, for a tool
+    that times them in turns.  The report: per kernel (its mangled name)
+    registers, shared memory bytes, spill store and load bytes."""
+    out_dir = BUILD_ROOT / f"{src}_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, path in versions:
+        out = out_dir / f"lib{name}.so"
+        cmd = ([_nvcc()] + NVCC_FLAGS + EXTRA_FLAGS.get(src, []) +
+               ["-Xptxas", "-v", "-o", str(out), str(path)])
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), out)
+    built = {}
+    for name, (proc, out) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        report = {}
+        for block in re.split(r"ptxas info\s*: Compiling entry function",
+                              log)[1:]:
+            kern = re.match(r"\s*'([^']+)'", block).group(1)
+            nums = {key: re.search(pat, block) for key, pat in (
+                ("registers", r"Used (\d+) registers"),
+                ("smem", r"(\d+) bytes smem"),
+                ("spill_stores", r"(\d+) bytes spill stores"),
+                ("spill_loads", r"(\d+) bytes spill loads"))}
+            report[kern] = {k: int(v.group(1)) if v else 0
+                            for k, v in nums.items()}
+        built[name] = (ctypes.CDLL(str(out)), report, out)
+    return built
 
 
 def library(src: str) -> ctypes.CDLL:

@@ -554,6 +554,23 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor,
     return speckle_bm(disp, cfg) if with_speckle else disp
 
 
+# the wide kernel's launch shape (csrc/stereo_bm.cu
+# tpuslam_stereo_bm_wide_shape), in its order
+WIDE_SHAPE_KEYS = ("rows", "planes_per_group", "planes_per_chunk", "staged",
+                   "shared_bytes", "registers", "blocks_per_sm")
+
+
+def stereo_bm_wide_shape(cfg: StereoBMConfig) -> dict:
+    """The launch shape K1's wide kernel takes for `cfg` on the current
+    card (WIDE_SHAPE_KEYS): output rows per block, planes per group and
+    per right-image chunk, whether the tile is staged in shared memory
+    (else the global kernel, for a radius whose tile does not fit), shared
+    bytes per block, registers per thread and blocks per SM."""
+    out = _cuda.attributes("stereo_bm", "tpuslam_stereo_bm_wide_shape", 7,
+                           cfg.num_disparities, cfg.block_size // 2)
+    return dict(zip(WIDE_SHAPE_KEYS, out))
+
+
 def stereo_bm_phase_occupancy(phase: str):
     """(registers per thread, shared bytes per block, blocks per SM) of the
     harness's K1 kernel cut after `phase` (not `prefilter`) on the current

@@ -28,7 +28,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 import statistics
 import subprocess
 import sys
@@ -137,41 +136,6 @@ def systems(shapes=SHAPES):
     return {s: out[s] for s in shapes}
 
 
-def build(sources):
-    """{name: (library, ptxas report, path)} of each (name, .cu path),
-    built in parallel with K7's flags and `-Xptxas -v`.  The report: per
-    kernel (its mangled name) registers, shared memory bytes, spill store
-    and load bytes."""
-    out_dir = _cuda.BUILD_ROOT / "thomas_probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, src in sources:
-        out = out_dir / f"lib{name}.so"
-        cmd = ([_cuda._nvcc()] + _cuda.NVCC_FLAGS +
-               _cuda.EXTRA_FLAGS["thomas"] +
-               ["-Xptxas", "-v", "-o", str(out), str(src)])
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT), out)
-    built = {}
-    for name, (proc, out) in procs.items():
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        report = {}
-        for block in re.split(r"ptxas info\s*: Compiling entry function",
-                              log)[1:]:
-            kern = re.match(r"\s*'([^']+)'", block).group(1)
-            nums = {key: re.search(pat, block) for key, pat in (
-                ("registers", r"Used (\d+) registers"),
-                ("smem", r"(\d+) bytes smem"),
-                ("spill_stores", r"(\d+) bytes spill stores"),
-                ("spill_loads", r"(\d+) bytes spill loads"))}
-            report[kern] = {k: int(v.group(1)) if v else 0
-                            for k, v in nums.items()}
-        built[name] = (ctypes.CDLL(str(out)), report, out)
-    return built
-
-
 def solver(lib, D, S, B, lam, stop=0):
     """A call of the library's K7 on (D, S, B, lam): the whole solve, or
     with `stop` 1 the solve cut after its forward pass (None where the
@@ -251,7 +215,7 @@ def run(source=None, turns=1, shapes=SHAPES, sass_dir=None):
     versions = [("this", _cuda.CSRC / "thomas.cu")]
     if source:
         versions.append(("other", Path(source)))
-    built = build(versions)
+    built = _cuda.build_versions("thomas", versions)
     for name, (_, report, path) in built.items():
         for kern, r in report.items():
             print(f"# {name}: {kern}: {r['registers']} registers, "
