@@ -18,15 +18,17 @@ tpuslam.  Phases, each of which raises on failure:
    card's launch floor, an empty spin timed the same way, once): K1
    StereoBM, K2 GFTT response+dilation, K3 ORB, K4 covariance medians and
    K5 LR check exactly, and K3's two halves alone (the `orb_blur` and
-   `orb_tests` tool launchers) each against its plain half; print K2's,
-   K3's, K4's and K5's registers, shared and local memory;
+   `orb_tests` tool launchers) each against its plain half; print K1's
+   tile shape, K1's, K2's, K3's, K4's and K5's registers, shared and
+   local memory (K1: and blocks per SM);
 4. K1 phases: the phase harness (tpuslam_torch/tools/probe_bm_parts.py)
    on the same chunk: K1 cut after each of its seven phases, each cut
    equal to its plain twin (the full one also to K1), each timed; then
-   K1's wide kernel, which runs the configurations its tiled kernel cannot
-   take (another disparity count, a block beyond 31, costs past uint16),
-   at six of them on one frame and at 128 disparities on the chunk, each
-   equal to its plain twin, timed, with its launch shape and occupancy;
+   K1's wide kernel, which runs the configurations its packed kernel
+   cannot take (another disparity count, a block beyond 31, costs past
+   uint16), at six of them on one frame and at 128 disparities on the
+   chunk, each equal to its plain twin, timed, with its launch shape and
+   occupancy;
 5. main path: what bench.py runs -- FastSlamPipeline.run_staged over the
    120 frames in SlamConfig() with a Mapper (async loop closure, device
    dictionary), once warm and once timed, every counter reset just before
@@ -343,10 +345,10 @@ def kernel_phase(lefts, rights, cfg):
     B, H, W = lefts.shape
     px = B * H * W
 
-    # K1: disparity and min-SAD of 30 frames.  Bound: the pair in (2 B),
-    # int16 disparity and int32 min-SAD out (6 B) per pixel; per pixel and
-    # disparity an absolute difference, two running-sum updates per box
-    # direction and a compare (6 operations)
+    # K1 (its packed kernel): disparity and min-SAD of 30 frames.  Bound:
+    # the pair in (2 B), int16 disparity and int32 min-SAD out (6 B) per
+    # pixel; per pixel and disparity an absolute difference, two
+    # running-sum updates per box direction and a compare (6 operations)
     kb = BM.stereo_bm_cuda(lefts, rights, cfg.bm)
     pb = BM.stereo_bm_plain(lefts, rights, cfg.bm)
     record(rows, "stereo_bm", "tpuslam_torch/csrc/stereo_bm.cu",
@@ -355,10 +357,13 @@ def kernel_phase(lefts, rights, cfg):
            lambda: BM.stereo_bm_plain(lefts, rights, cfg.bm), kb, pb,
            8 * px, 6 * cfg.bm.num_disparities * px)
     valid_px = float((pb[0] >= 0).float().mean())
-    regs, smem, blocks = BM.stereo_bm_phase_occupancy("full")
-    log(f"# stereo_bm: {valid_px:.3f} of pixels hold a disparity; "
-        f"{regs} registers, {smem} B shared memory, {blocks} blocks of "
-        f"256 threads per SM")
+    shape = BM.stereo_bm_packed_shape(cfg.bm)
+    rows["stereo_bm"]["shape"] = shape
+    log(f"# stereo_bm: {valid_px:.3f} of pixels hold a disparity; packed "
+        f"kernel, a {shape['columns']} x {shape['rows']} tile a block "
+        f"({shape['sub_bands']} sub-bands of 8 rows), "
+        f"{shape['registers']} registers, {shape['shared_bytes']} B shared "
+        f"memory, {shape['blocks_per_sm']} blocks of 256 threads per SM")
 
     # K5: the left-right check on K1's outputs.  Bound: int16 disparity
     # and int32 min-SAD in, int16 disparity out (8 B per pixel); ~20
@@ -493,7 +498,7 @@ def k1_phases_phase(rows, lefts, rights, cfg):
                                "plain_ms", "bound_ms", "bound_by")})
 
 
-# configurations outside K1's tiled kernel, which K1 runs in its wide
+# configurations outside K1's packed kernel, which K1 runs in its wide
 # kernel (the reference's strip kernel takes each): StereoBMConfig keywords
 # and the frames of the chunk it runs on
 K1_WIDE = {"ndisp1": (dict(num_disparities=1), 1),
@@ -517,8 +522,8 @@ def k1_wide_phase(rows, lefts, rights):
     wide = {}
     for case, (kw, frames) in K1_WIDE.items():
         cfg = StereoBMConfig(**kw)
-        if BM.k1_tiled_refusal(cfg) is None:
-            raise AssertionError(f"K1 wide, {case}: the tiled kernel "
+        if BM.k1_packed_refusal(cfg) is None:
+            raise AssertionError(f"K1 wide, {case}: the packed kernel "
                                  f"takes it")
         lb, rb = lefts[:frames].contiguous(), rights[:frames].contiguous()
         px = lb.numel()
@@ -2880,7 +2885,7 @@ def main():
     kernels = [{k: rows[n][k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
-        "library_ms", "via", "tool_launches", "phases", "wide",
+        "library_ms", "via", "tool_launches", "phases", "shape", "wide",
         "per_frame", "per_frame_loop_closure", "tool_apps", "dist",
         "launches_scale", "n", "m", "bit_equal", "step_us", "forward_ms",
         "backward_ms", "chain_ms", "at_cut", "at_4541", "backend_s",

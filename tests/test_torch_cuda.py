@@ -18,7 +18,7 @@ counters that the default configuration's chunk step, and a Mapper run
 whose loop closure fires, launch the kernels and no plain version; a
 third does so for the batch app (the per-frame path), and the speckle
 filter on the card is held to the CPU bit for bit.  Configurations outside
-K1's tiled kernel run in its wide kernel (staged, or its global variant
+K1's packed kernel run in its wide kernel (staged, or its global variant
 at a radius whose tile exceeds shared memory) and equal its plain twin; GFTT
 outside K2's block size runs the plain version on the card and equals the
 CPU; run_ingest on the card equals run_staged on the same written frames.
@@ -70,18 +70,28 @@ def _sawtooth_pair(h=101, w=333):
             torch.as_tensor(np.ascontiguousarray(right)).cuda())
 
 
-@pytest.mark.parametrize("case", ["fixture", "wide_minsad"])
+# K1's packed kernel at the sawtooth pair: cap 63 at the main path's block,
+# and the largest cost its 16-bit lanes admit (2 * 34 * 31**2 = 65348)
+PACKED_SAWTOOTH = {"wide_minsad": dict(prefilter_cap=63, block_size=21),
+                   "packed_limit": dict(prefilter_cap=34, block_size=31)}
+
+
+@pytest.mark.parametrize("case", ["fixture"] + list(PACKED_SAWTOOTH))
 def test_stereo_bm_kernel(pair, case):
-    """K1 equals its plain twin: on the fixture in the slice's settings,
-    and on a pair whose min-SAD lies between 32768 and 65535 (cap 63,
-    block 21), which K1 writes as int32."""
+    """K1 (its packed kernel) equals its plain twin: on the fixture in the
+    slice's settings, and on the sawtooth pair, whose min-SAD lies between
+    32768 and 65535 and which K1 writes as int32: at cap 63, block 21, and
+    at cap 34, block 31, where the costs come near the lanes' limit, so a
+    carry across the 16-bit lanes would show."""
     from tpuslam_torch.config import StereoBMConfig
     from tpuslam_torch.kernels import stereo_bm as T
     if case == "fixture":
         args, cfg = pair, _slice_cfg().bm
     else:
         args = _sawtooth_pair()
-        cfg = StereoBMConfig(prefilter_cap=63, block_size=21)
+        cfg = StereoBMConfig(**PACKED_SAWTOOTH[case])
+    assert T.k1_packed_refusal(cfg) is None
+    assert T.stereo_bm_packed_shape(cfg)["blocks_per_sm"] >= 2
     kd, ks = T.stereo_bm_cuda(*args, cfg)
     pd, ps = T.stereo_bm_plain(*args, cfg)
     torch.cuda.synchronize()
@@ -94,21 +104,28 @@ def test_stereo_bm_kernel(pair, case):
         assert 32767 < int(ps.max()) <= 65535
 
 
-@pytest.mark.parametrize("crop", [False, True])
+# crops of the pair for the harness (rows, columns): a multiple of no tile,
+# and shorter than one tile of 64 rows
+PHASE_CROPS = {True: (373, 629), "short": (40, 75)}
+
+
+@pytest.mark.parametrize("crop", [False, True, "short"])
 @pytest.mark.parametrize("phase", ["prefilter", "vbox", "boxes", "winner",
                                    "sad", "uniq", "full"])
 def test_stereo_bm_phase_kernel(pair, phase, crop):
     """The K1 phase harness: each cut of K1 equals its plain twin bit for
     bit, the full cut equals K1, each cut runs at K1's occupancy, and a
     harness launch counts only as itself; also on a crop of 373x629, not
-    a whole number of K1's 32x8 tiles, whose last row of tiles ends
-    inside the image (the vertical pass's outside-image mask)."""
+    a whole number of K1's 32-column tiles, whose last row of tiles ends
+    inside the image (rows outside staged as zeros, the texture's mask),
+    and on a 40x75 crop, shorter than one tile."""
     from tpuslam_torch.config import StereoBMConfig
     from tpuslam_torch.kernels import _cuda
     from tpuslam_torch.kernels import stereo_bm as T
     cfg = StereoBMConfig()
     if crop:
-        pair = tuple(t[:, :373, :629].contiguous() for t in pair)
+        h, w = PHASE_CROPS[crop]
+        pair = tuple(t[:, :h, :w].contiguous() for t in pair)
     _cuda.reset_counters()
     got = T.stereo_bm_phase_cuda(*pair, cfg, phase)
     torch.cuda.synchronize()
@@ -505,7 +522,7 @@ def test_batch_app_runs_kernels_and_closes_a_loop(tmp_path):
     assert np.isfinite(res["ate_m"]) and res["n_occupied_voxels"] > 0
 
 
-# configurations outside K1's tiled kernel, which K1 runs in its wide
+# configurations outside K1's packed kernel, which K1 runs in its wide
 # kernel (the reference's strip kernel takes each): StereoBMConfig keywords
 K1_WIDE = {"ndisp1": dict(num_disparities=1),
            "ndisp32": dict(num_disparities=32),
@@ -524,14 +541,14 @@ K1_WIDE_CROPS = {"odd_crop": (37, 203)}
 
 @pytest.mark.parametrize("case", list(K1_WIDE))
 def test_k1_wide_kernel(pair, case):
-    """K1 runs a configuration its tiled kernel cannot take in its wide
+    """K1 runs a configuration its packed kernel cannot take in its wide
     kernel: equal to its plain twin on the card, outputs and min-SAD (past
     uint16 on the sawtooth pair); and stereo_bm on the card, K1 and K5
     launched and no plain version, equals stereo_bm on the CPU."""
     from tpuslam_torch.config import StereoBMConfig
     from tpuslam_torch.kernels import _cuda, stereo_bm as T
     cfg = StereoBMConfig(**K1_WIDE[case])
-    assert T.k1_tiled_refusal(cfg) is not None
+    assert T.k1_packed_refusal(cfg) is not None
     args = _sawtooth_pair() if case == "sawtooth_cost" else pair
     if case in K1_WIDE_CROPS:
         h, w = K1_WIDE_CROPS[case]

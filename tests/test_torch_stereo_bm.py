@@ -80,7 +80,7 @@ def test_disparity_bit_equal_small_config(rng):
                                   _ref(left, right, **kw))
 
 
-# configurations that K1 runs in its wide kernel (its tiled kernel
+# configurations that K1 runs in its wide kernel (its packed kernel
 # refuses each): the plain version, the wide kernel's twin on the card,
 # against tpuslam's stereo_bm
 WIDE_CONFIGS = {"ndisp32": dict(num_disparities=32),
@@ -103,7 +103,7 @@ def wide_crop(stereo_pair):
 @pytest.mark.parametrize("case", list(WIDE_CONFIGS))
 def test_wide_configurations_bit_equal(wide_crop, case):
     kw = WIDE_CONFIGS[case]
-    assert T.k1_tiled_refusal(StereoBMConfig(**kw)) is not None
+    assert T.k1_packed_refusal(StereoBMConfig(**kw)) is not None
     ref = _ref(*wide_crop, **kw)
     disp, _ = _port(*wide_crop, **kw)
     np.testing.assert_array_equal(disp, ref)
@@ -157,11 +157,11 @@ def _c1_pair():
 def test_minsad_wider_than_int16():
     """Min-SAD above 32767 reaches the left-right check unwrapped: the
     port's stereo_bm equals tpuslam's bit for bit (with an int16 min-SAD
-    it differed at 4 pixels).  K1's tiled kernel, whose costs are uint16,
-    cannot take the configuration, so K1 runs it in its wide kernel (int32
-    costs; tests/test_torch_cuda.py::test_k1_wide_kernel), and the phase
-    harness, which cuts the tiled kernel, refuses it before any build or
-    launch."""
+    it differed at 4 pixels).  K1's packed kernel, whose costs are 16-bit
+    lanes, cannot take the configuration, so K1 runs it in its wide kernel
+    (int32 costs; tests/test_torch_cuda.py::test_k1_wide_kernel), and the
+    phase harness, which cuts the packed kernel, refuses it before any
+    build or launch."""
     from tpuslam_torch.kernels import _cuda
     left, right = _c1_pair()
     kw = dict(prefilter_cap=63, block_size=25)
@@ -174,7 +174,7 @@ def test_minsad_wider_than_int16():
                       with_speckle=False)[0].numpy(), ref)
     minsad = T.stereo_bm_plain(lt, rt, StereoBMConfig(**kw))[1]
     assert minsad.dtype == torch.int32 and int(minsad.max()) > 32767
-    assert isinstance(T.k1_tiled_refusal(StereoBMConfig(**kw)), ValueError)
+    assert isinstance(T.k1_packed_refusal(StereoBMConfig(**kw)), ValueError)
     with pytest.raises(ValueError, match="uint16 cost limit"):
         T.stereo_bm_phase_cuda(lt, rt, StereoBMConfig(**kw), "full")
     assert _cuda.LAUNCHES["stereo_bm"] == 0
@@ -185,7 +185,7 @@ def test_minsad_wider_than_int16():
     (63, 21, True), (63, 23, False), (31, 31, True), (34, 31, True),
     (35, 31, False)])
 def test_k1_cost_limit(cap, block, accepted):
-    """K1's tiled kernel takes a configuration exactly when 2 * cap *
+    """K1's packed kernel takes a configuration exactly when 2 * cap *
     block**2 <= 65535 (34 * 2 * 961 = 65348, 35 * 2 * 961 = 67270); the
     phase harness, which cuts that kernel, says so before it looks at the
     tensors.  K1 itself takes both (the others in its wide kernel), so it,
@@ -193,7 +193,7 @@ def test_k1_cost_limit(cap, block, accepted):
     from tpuslam_torch.kernels import _cuda
     img = torch.zeros((1, 40, 48), dtype=torch.uint8)
     cfg = StereoBMConfig(prefilter_cap=cap, block_size=block)
-    assert (T.k1_tiled_refusal(cfg) is None) == accepted
+    assert (T.k1_packed_refusal(cfg) is None) == accepted
     _cuda.reset_counters()
     with pytest.raises(ValueError, match="CUDA tensor"):
         T.stereo_bm_cuda(img, img, cfg)
@@ -201,6 +201,55 @@ def test_k1_cost_limit(cap, block, accepted):
                        else "uint16 cost limit"):
         T.stereo_bm_phase_cuda(img, img, cfg, "vbox")
     assert sum(_cuda.LAUNCHES.values()) == 0
+
+
+# the edge of K1's packed kernel's domain: the largest cost it admits (cap
+# 34, block 31: 2 * 34 * 31**2 = 65348) and the main path's block at the
+# largest cap the prefilter is built for (63, block 21: 55566)
+PACKED_EDGE = {"cap34_block31": dict(prefilter_cap=34, block_size=31),
+               "cap63_block21": dict(prefilter_cap=63, block_size=21)}
+
+
+def _sawtooth_pair(h=40, w=160):
+    """A rising sawtooth (8 grey levels a pixel, period 32) on the left and
+    the falling one on the right: the prefiltered left sits at 2 * cap and
+    the right at 0 almost everywhere, so every cost comes near
+    2 * cap * block**2 (tests/test_torch_cuda.py's card pair, cropped)."""
+    ramp = (np.arange(w) % 32 * 8).astype(np.uint8)
+    return (np.ascontiguousarray(np.broadcast_to(ramp, (h, w))),
+            np.ascontiguousarray(np.broadcast_to(248 - ramp, (h, w))))
+
+
+def _ref_minsad(left, right, **kw):
+    """The min-SAD over the 64 disparities, from tpuslam's prefilter_xsobel
+    and _box_sum (the XLA twin's own steps)."""
+    cfg = JCfg(**SLICE, **kw)
+    cap, r = cfg.prefilter_cap, cfg.block_size // 2
+    lp = np.asarray(J.prefilter_xsobel(left, cap)).astype(np.int32)
+    rp = np.asarray(J.prefilter_xsobel(right, cap)).astype(np.int32)
+    rshift = np.zeros((cfg.num_disparities,) + lp.shape, np.int32)
+    for d in range(cfg.num_disparities):
+        rshift[d, :, d:] = rp[:, :lp.shape[1] - d]
+    return np.asarray(J._box_sum(np.abs(lp[None] - rshift), r)).min(axis=0)
+
+
+@pytest.mark.parametrize("pair", ["fixture", "sawtooth"])
+@pytest.mark.parametrize("case", list(PACKED_EDGE))
+def test_packed_edge_bit_equal(wide_crop, case, pair):
+    """At the edge of K1's packed kernel's domain, the plain version (the
+    twin the card holds that kernel to, tests/test_torch_cuda.py) equals
+    tpuslam's stereo_bm bit for bit, disparity and min-SAD: on a crop of
+    the fixture pair and on a sawtooth pair whose min-SAD passes 32767."""
+    kw = PACKED_EDGE[case]
+    assert T.k1_packed_refusal(StereoBMConfig(**kw)) is None
+    left, right = wide_crop if pair == "fixture" else _sawtooth_pair()
+    disp, minsad = _port(left, right, **kw)
+    np.testing.assert_array_equal(disp, _ref(left, right, **kw))
+    np.testing.assert_array_equal(minsad, _ref_minsad(left, right, **kw))
+    if pair == "sawtooth":
+        assert 2 ** 15 < int(minsad.max()) <= 65535
+    else:
+        assert (disp >= 0).sum() > 0
 
 
 def _lr_ref(disp, minsad, **kw):
@@ -442,6 +491,40 @@ def test_phase_wrappers_refuse(rng):
     assert sum(_cuda.PLAIN_CALLS.values()) == 0
 
 
+@pytest.mark.parametrize("kw", [dict(num_disparities=32),
+                                dict(prefilter_cap=35, block_size=31),
+                                dict(block_size=33, prefilter_cap=15)])
+def test_packed_queries_refuse(kw):
+    """The packed kernel's shape and occupancy queries refuse a
+    configuration the packed kernel does not take, with its refusal, before
+    any build or launch."""
+    from tpuslam_torch.kernels import _cuda
+    cfg = StereoBMConfig(**kw)
+    refusal = T.k1_packed_refusal(cfg)
+    assert refusal is not None
+    _cuda.reset_counters()
+    for query in (T.stereo_bm_packed_shape,
+                  lambda c: T.stereo_bm_phase_occupancy("full", c)):
+        with pytest.raises(type(refusal), match=str(refusal)[:20]):
+            query(cfg)
+    assert sum(_cuda.LAUNCHES.values()) == 0
+
+
+def test_k1_bound_at_the_integer_rate():
+    """K1's integer work is bound at OPS_32, the rate the card has for it:
+    an SM's 64 INT32 lanes issue K1's packed instructions (a VABSDIFF4's
+    four byte differences, an add's two 16-bit sums on a word), and every
+    value K1 sums fits 16 bits, so is exact in FP32 too.  6 operations a
+    pixel and disparity on the main path's 30-frame chunk: 0.0802 ms, more
+    than its 8 bytes a pixel take (0.0334 ms)."""
+    from tpuslam_torch.tools import timing
+    assert timing.OPS_32 == 67e12
+    px = 30 * 376 * 1241
+    ms, by = timing.bound(8 * px, 6 * 64 * px)
+    assert by == "operations" and abs(ms - 0.08023) < 1e-5
+    assert abs(8 * px / timing.HBM_BPS * 1e3 - 0.03343) < 1e-5
+
+
 def test_probe_needs_the_card(monkeypatch):
     """The harness exits with an error where there is no CUDA device.  Its
     bound model gives the full phase the bytes of K1's own function (the
@@ -460,9 +543,9 @@ def test_probe_needs_the_card(monkeypatch):
     assert [b for b, _ in added.values()] == [4, 6, 0, 0, 0, 0, 0]
 
 
-# configurations outside kernel K1's tiled kernel (tpuslam's strip kernel
+# configurations outside kernel K1's packed kernel (tpuslam's strip kernel
 # computes each), and the default one inside it: (StereoBMConfig keywords,
-# the tiled kernel takes it)
+# the packed kernel takes it)
 K1_ENVELOPE = {"default": ({}, True),
                "ndisp32": (dict(num_disparities=32), False),
                "block33": (dict(prefilter_cap=15, block_size=33), False),
@@ -473,16 +556,16 @@ K1_ENVELOPE = {"default": ({}, True),
 @pytest.mark.parametrize("case", list(K1_ENVELOPE))
 def test_dispatch_choice_on_the_card(monkeypatch, case):
     """The StereoBM dispatcher sends every CUDA tensor to kernel K1 and
-    every CPU tensor to the plain version; K1 runs its tiled kernel
-    exactly where k1_tiled_refusal is None, else its wide kernel.  Read on
+    every CPU tensor to the plain version; K1 runs its packed kernel
+    exactly where k1_packed_refusal is None, else its wide kernel.  Read on
     the CPU with a stand-in CUDA tensor and recording twins, and with K1's
     launcher and its CUDA checks stood in for, so nothing is built."""
     import contextlib
     from types import SimpleNamespace
     from tpuslam_torch.kernels import _cuda
-    kw, tiled = K1_ENVELOPE[case]
+    kw, packed = K1_ENVELOPE[case]
     cfg = StereoBMConfig(disp12_max_diff=-1, **kw)
-    assert (T.k1_tiled_refusal(cfg) is None) == tiled
+    assert (T.k1_packed_refusal(cfg) is None) == packed
     called = []
     with monkeypatch.context() as m:
         m.setattr(T, "stereo_bm_cuda",
@@ -501,4 +584,4 @@ def test_dispatch_choice_on_the_card(monkeypatch, case):
                         lambda name, *a: launched.append((name, a[-2:])))
     img = torch.zeros((1, 40, 48), dtype=torch.uint8)
     T.stereo_bm_cuda(img, img, cfg)
-    assert launched == [("stereo_bm", (cfg.num_disparities, int(not tiled)))]
+    assert launched == [("stereo_bm", (cfg.num_disparities, int(not packed)))]

@@ -6,65 +6,78 @@
 //   tpuslam_torch/kernels/stereo_bm.py:stereo_bm_plain
 // (itself bit-equal to tpuslam.kernels.stereo_bm.stereo_bm, the XLA twin
 // of the Pallas kernel): X-Sobel prefilter capped at ftzero with
-// reflect-101 rows and columns 0 and W-1 forced to ftzero; SAD over 64
+// reflect-101 rows and columns 0 and W-1 forced to ftzero; SAD over the
 // disparities with a (2r+1)^2 box, zero outside the image and zero right
 // pixels for x < d; the winner is the first minimum in OpenCV's reversed
-// order j = 63 - d (ties go to the larger disparity); uniqueness and
+// order j = ndisp - 1 - d (ties go to the larger disparity); uniqueness and
 // texture gates; x16 subpixel with C's truncating division;
 // (mindisp - 1) * 16 at invalid pixels.  Also writes the per-pixel
 // minimum SAD (int32, as the reference keeps it), which the left-right
-// check consumes.
+// check consumes.  All arithmetic is integer, so CUDA's `/` is C's
+// division and no TPU float workaround is needed.
 //
-// What bounds it on this card: instruction issue, not memory.  The two
-// prefiltered images (1 byte/pixel) are read once per tile and stay in
-// shared memory; the time goes to the box passes' shared-memory taps.
+// Launch 1 prefilters both images into uint8 scratch, four pixels of a row
+// a thread (the three rows' six columns loaded once).  Launch 2 is one of
+// two kernels, chosen by the wrapper from the configuration alone:
+// `bm_packed_kernel`, the main path's, where there are 64 disparities, an
+// odd block of 3..31 and every cost fits 16 bits (2 * cap * block^2 <=
+// 65535; kernels/stereo_bm.py k1_packed_refusal), and the wide kernel
+// (`bm_wide_kernel`, below) at every other configuration.
 //
-// Design: launch 1 prefilters both images into uint8 scratch.  Launch 2
-// gives each block a 32x8 output tile of one frame; the block stages the
-// left tile with its box halo and the right tile with halo plus the 63
-// extra columns the shifts reach.  Then, for the 65 planes (the texture
-// image |L - ftzero|, then |L - R_d| for each disparity), GP = 4 planes
-// at a time:
-// - the vertical pass: one thread per (plane, staged column) forms the
-//   column's 8 vertical (2r+1)-row sums as a running sum, 2r+1 terms for
-//   the first row and then one term added and one removed per row
-//   (2r+1 + 14 terms instead of 8 * (2r+1)); a term is 0 where the left
-//   pixel lies outside the image, on the added and the removed row alike,
-//   so each sum equals the direct (2r+1)-row sum exactly;
-// - the horizontal pass: each thread sums 2r+1 vertical sums of its
-//   output pixel per plane.
-// That is 17 steps of two barriers per tile.  The vertical sums are
-// uint16 in shared memory (a sum is at most 2 * prefilter_cap * (2r+1),
-// below the cost limit) so that four planes fit the 48 KB of static
-// shared memory.  The 64 costs of each pixel stay in shared memory as
-// uint16 for the winner, uniqueness and subpixel epilogue: a cost is at
-// most 2 * prefilter_cap * (2r+1)^2, so this tiled kernel takes a
-// configuration only where that is at most 65535 (kernels/stereo_bm.py
-// k1_tiled_refusal).  All arithmetic is integer, so CUDA's `/` is C's
-// division and no TPU float workaround is needed.  Next (ROADMAP): the
-// horizontal pass as a running sum, a harness cut after staging, and
-// wider prefilter loads.
-//
-// Every other configuration the reference's strip kernel takes (another
-// disparity count, a block beyond 31 or even, costs past uint16) runs in
-// K1's wide kernel, `bm_wide_kernel` (see there): the same staged tile
-// and running vertical sums, in int32 and in dynamic shared memory sized
-// from r at launch, a running horizontal sum along each row, the right
-// image staged per chunk of planes and each group of costs folded at once
-// into a one-pass walk over d that keeps only what the epilogue reads, so
-// it needs no cost store and has no limit on ndisp, r or the cost.  The
-// main path never takes it.
+// bm_packed_kernel.  A block of 32x8 threads takes a 32-column output tile
+// of one frame, 8 * nsb rows tall (64 rows where two blocks then fit an
+// SM's shared memory, so to r = 14; packed_nsb), and stages the tile's
+// rows with their box halo once, a warp per row with all of the row's
+// loads issued before its stores: the left image a byte a pixel, the right
+// image as words Rw[i] = R[i] | R[i+1] << 8 | R[i+2] << 16 | R[i+3] << 24
+// (four neighbouring right pixels, over the 63 extra columns the shifts
+// reach), rows outside the image as zeros in both images so that their
+// terms are 0.  The 64 disparities go in 32 words of two 16-bit lanes, four
+// disparities 4q..4q+3 in words 2q (d = 4q high, 4q + 2 low) and 2q + 1
+// (4q + 1 high, 4q + 3 low).  Per sub-band of 8 output rows:
+// - the vertical pass: four threads per staged column, 16 disparities
+//   each, carry the column's running (2r+1)-row sums in registers from row
+//   to row and from sub-band to sub-band, so the tile's vertical halo is
+//   paid once.  Per row and four disparities one __vabsdiffu4 (one
+//   VABSDIFF4 on sm_90a) of the left byte times 0x01010101 against a word
+//   of Rw gives the four |L - R| bytes, for the row added and for the row
+//   removed; the running sums take the bytes as a plain word sum S and the
+//   odd bytes alone (one __byte_perm each), B, so the even bytes' sums are
+//   S - (B << 8).  The sums go to shared memory, a column outside the
+//   image writes zeros;
+// - the horizontal pass: a thread per (word, output row) runs the window
+//   along the row's 32 outputs, one sum in and one out a step, and writes
+//   the costs over the vertical sums in place;
+// - the fold: each pixel's thread reads its 32 cost words into registers;
+//   after a barrier the next sub-band's vertical pass overwrites them while
+//   the thread feeds its 64 costs in ascending d into the one-pass walk
+//   (SelWalk, below) and writes the pixel.
+// Packed sums are exact: a word's sums and differences are exact modulo
+// 2^32, so a carry or borrow between the lanes of an intermediate value
+// cancels, and a word decodes to its two lanes wherever each true value
+// lies in [0, 65535]: a vertical sum is at most 255 * 31, a cost at most
+// min(2 * cap, 255) * block^2 <= 2 * cap * block^2 <= 65535.  The texture
+// plane |L - ftzero| (0 outside the image): int32 vertical sums by the
+// first group's threads, the (2r+1)-tap horizontal sum by the pixel's
+// thread.  What bounds it on this card: the 64 INT32 lanes an SM, which
+// issue the VABSDIFF4s, adds and byte permutes and the walk's compares,
+// mins and selects (the walk's ~8.5 a pixel and disparity the most), and
+// shared-memory issue (32 lanes a clock) in the vertical and horizontal
+// passes: per pixel and disparity ~1.5 and ~1.8 shared loads and stores.
+// No cost leaves the block.
 //
 // The phase harness (tpuslam_stereo_bm_phase) replaces the TPU timing
 // probe tools/probe_bm_parts.py:148 (the strip kernel cut after each of
-// its passes).  `bm_kernel<STOP>` is K1's own kernel cut after phase STOP:
-// it writes that phase's two outputs (tpuslam_torch/kernels/stereo_bm.py
-// PHASES, int32) and returns.  Each output depends on every plane the
-// phase computes (the texture sum through live() where the phase does
-// not output it), so nvcc cannot drop the phase's work, and a cut that
-// needs fewer registers or less shared memory is launched with enough
-// dynamic shared memory to run at K1's occupancy (blocks per SM).
-// tpuslam_stereo_bm launches bm_kernel<FULL>, the main path's K1.
+// its passes).  `bm_packed_kernel<STOP>` is K1's own kernel cut after phase
+// STOP: it writes that phase's two outputs (tpuslam_torch/kernels/
+// stereo_bm.py PHASES, int32) and returns: vbox after the vertical pass
+// (read at the pixel's own column), boxes after the horizontal pass,
+// winner, sad and uniq from the walk's state.  Each output depends on every
+// plane the phase computes (the texture sum through live() where the
+// phase does not output it), so nvcc cannot drop the phase's work, and a
+// cut that needs fewer registers is launched with enough dynamic shared
+// memory to run at K1's occupancy (blocks per SM).
+// tpuslam_stereo_bm launches bm_packed_kernel<FULL>, the main path's K1.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -74,17 +87,24 @@
 
 namespace {
 
-constexpr int NDISP = 64;
+constexpr int NDISP = 64;            // the packed kernel's disparities
 constexpr int TX = 32;               // output columns per block
-constexpr int TY = 8;                // output rows per block
+constexpr int TY = 8;                // thread rows per block
 constexpr int NT = TX * TY;
-constexpr int RMAX = 15;             // block_size <= 31
-constexpr int ROWS = TY + 2 * RMAX;
-constexpr int LCOLS = TX + 2 * RMAX;
-constexpr int RCOLS = LCOLS + NDISP - 1;
-constexpr int NPLANES = NDISP + 1;   // the texture image, then 64 disparities
-constexpr int GP = 4;                // planes per step: GP * LCOLS <= NT
-static_assert(GP * LCOLS <= NT, "one thread per plane and column");
+constexpr int RMAX = 15;             // the packed kernel: block_size <= 31
+constexpr int PK_SB = TY;            // output rows per sub-band
+constexpr int PK_WORDS = NDISP / 2;  // cost words per pixel
+constexpr int PK_GROUPS = 4;         // vertical threads per staged column
+constexpr int PK_QUADS = NDISP / 4 / PK_GROUPS;  // quads a vertical thread
+// two blocks an SM: 2 * (bytes + the 1 KB the card reserves a block) within
+// the SM's 228 KB
+constexpr size_t PK_SMEM = 115712;
+static_assert(PK_WORDS == TX && PK_SB == TY,
+              "a thread per (word, row) and per pixel of a sub-band");
+static_assert(PK_GROUPS * (TX + 2 * RMAX) <= NT,
+              "four threads per staged column");
+static_assert(TX + 2 * RMAX <= 64 && TX + 2 * RMAX + NDISP - 1 <= 128,
+              "a staged row: two left bytes and four right words a lane");
 
 // the harness's cut points, in order (kernels/stereo_bm.py PHASES)
 enum Phase { PREFILTER, VBOX, BOXES, WINNER, SAD, UNIQ, FULL, NPHASES };
@@ -98,26 +118,32 @@ __global__ void prefilter_kernel(const uint8_t* __restrict__ left,
                                  uint8_t* __restrict__ lp,
                                  uint8_t* __restrict__ rp,
                                  int H, int W, int cap, long total) {
-  long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  // total: image rows (B * H) times quads of 4 pixels a row
+  const int q = (W + 3) / 4;
+  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
   if (i >= total) return;
-  const uint8_t* src = blockIdx.y ? right : left;
-  uint8_t* dst = blockIdx.y ? rp : lp;
-  int x = (int)(i % W);
-  long t = i / W;
-  int y = (int)(t % H);
-  const uint8_t* im = src + (t / H) * (long)H * W;
-  if (x == 0 || x == W - 1) {
-    dst[i] = (uint8_t)cap;
-    return;
+  const long t = i / q;                    // image row over the batch
+  const int x0 = (int)(i - t * q) * 4, y = (int)(t % H);
+  const uint8_t* im = (blockIdx.y ? right : left) + (t - y) * (long)W;
+  uint8_t* dst = (blockIdx.y ? rp : lp) + t * (long)W;
+  const int yu = (y == 0) ? 1 : y - 1;     // reflect-101 rows
+  const int yd = (y == H - 1) ? H - 2 : y + 1;
+  int u[6], c[6], d[6];                    // columns x0 - 1 .. x0 + 4
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const int xx = min(max(x0 - 1 + k, 0), W - 1);
+    u[k] = im[(long)yu * W + xx];
+    c[k] = im[(long)y * W + xx];
+    d[k] = im[(long)yd * W + xx];
   }
-  int yu = (y == 0) ? 1 : y - 1;           // reflect-101 rows
-  int yd = (y == H - 1) ? H - 2 : y + 1;
-  int du = (int)im[(long)yu * W + x + 1] - (int)im[(long)yu * W + x - 1];
-  int dc = (int)im[(long)y * W + x + 1] - (int)im[(long)y * W + x - 1];
-  int dd = (int)im[(long)yd * W + x + 1] - (int)im[(long)yd * W + x - 1];
-  int v = du + 2 * dc + dd;
-  v = min(max(v, -cap), cap) + cap;
-  dst[i] = (uint8_t)v;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int x = x0 + j;
+    if (x >= W) break;
+    int v = (u[j + 2] - u[j]) + 2 * (c[j + 2] - c[j]) + (d[j + 2] - d[j]);
+    v = min(max(v, -cap), cap) + cap;
+    dst[x] = (uint8_t)((x == 0 || x == W - 1) ? cap : v);
+  }
 }
 
 // v, as the texture sum tex is never negative: the cuts between BOXES and
@@ -126,170 +152,6 @@ __global__ void prefilter_kernel(const uint8_t* __restrict__ left,
 __device__ __forceinline__ int live(int tex, int v) {
   return tex < 0 ? tex : v;
 }
-
-template <int STOP>
-__global__ void __launch_bounds__(NT)
-bm_kernel(const uint8_t* __restrict__ lp, const uint8_t* __restrict__ rp,
-          Out<STOP>* __restrict__ disp, int* __restrict__ minsad_out,
-          int H, int W, int r, int mindisp, int ftzero, int uniq,
-          int tex_thr) {
-  __shared__ int16_t Ls[ROWS][LCOLS];     // -1 marks outside the image
-  __shared__ uint8_t Rs[ROWS][RCOLS];
-  __shared__ uint16_t Vs[GP][TY][LCOLS];
-  __shared__ uint16_t costs[NDISP][NT];
-
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const long frame = (long)blockIdx.z * H * W;
-  const uint8_t* L = lp + frame;
-  const uint8_t* R = rp + frame;
-  const int win = 2 * r + 1;
-  const int rows = TY + 2 * r, lcols = TX + 2 * r;
-  const int rcols = lcols + NDISP - 1;
-
-  for (int i = tid; i < rows * lcols; i += NT) {
-    int yy = i / lcols, xx = i % lcols;
-    int y = y0 - r + yy, x = x0 - r + xx;
-    Ls[yy][xx] = (y >= 0 && y < H && x >= 0 && x < W)
-                     ? (int16_t)L[(long)y * W + x] : (int16_t)-1;
-  }
-  for (int i = tid; i < rows * rcols; i += NT) {
-    int yy = i / rcols, xx = i % rcols;
-    int y = y0 - r + yy, x = x0 - r - (NDISP - 1) + xx;
-    Rs[yy][xx] = (y >= 0 && y < H && x >= 0 && x < W)
-                     ? R[(long)y * W + x] : (uint8_t)0;
-  }
-  __syncthreads();
-
-  // plane p of the 65 is k = p - 1: k = -1 the texture image
-  // |L - ftzero|, k = d the absolute difference |L(x) - R(x - d)|.  This
-  // thread's vertical pass: plane g of each group, staged column xx.
-  const int g = tid / lcols, xx = tid % lcols;
-  int tex = 0;
-  int vsum = 0, v0 = 0;      // VBOX: all planes' vertical sums, plane j = 0
-  for (int p0 = 0; p0 < NPLANES; p0 += GP) {
-    const int k = p0 + g - 1;
-    if (g < GP && k < NDISP) {
-      const int rx = xx + NDISP - 1 - k;
-      auto term = [&](int row) {     // 0 outside the image (Ls < 0)
-        int l = Ls[row][xx];
-        int rv = (k < 0) ? ftzero : (int)Rs[row][rx];
-        return l >= 0 ? abs(l - rv) : 0;
-      };
-      int s = 0;
-      for (int t = 0; t < win; ++t) s += term(t);
-      Vs[g][0][xx] = (uint16_t)s;
-      for (int oy = 1; oy < TY; ++oy) {
-        s += term(oy - 1 + win) - term(oy - 1);
-        Vs[g][oy][xx] = (uint16_t)s;
-      }
-    }
-    __syncthreads();
-    for (int q = 0; q < GP && p0 + q < NPLANES; ++q) {
-      const int kq = p0 + q - 1;
-      if constexpr (STOP == VBOX) {
-        int v = Vs[q][ty][tx + r];
-        vsum += v;
-        if (kq == NDISP - 1) v0 = v;
-      } else {
-        int c = 0;
-        for (int t = 0; t < win; ++t) c += Vs[q][ty][tx + t];
-        if (kq < 0) tex = c;
-        else costs[kq][tid] = (uint16_t)c;
-      }
-    }
-    __syncthreads();
-  }
-
-  const int x = x0 + tx, y = y0 + ty;
-  if (x >= W || y >= H) return;
-  if constexpr (STOP == VBOX) {
-    disp[frame + (long)y * W + x] = v0;
-    minsad_out[frame + (long)y * W + x] = vsum;
-    return;
-  }
-  if constexpr (STOP == BOXES) {
-    int s = tex;
-    for (int j = 0; j < NDISP; ++j) s += costs[NDISP - 1 - j][tid];
-    disp[frame + (long)y * W + x] = costs[NDISP - 1][tid];
-    minsad_out[frame + (long)y * W + x] = s;
-    return;
-  }
-
-  // winner in internal order j = NDISP-1-d: first strict minimum
-  int best = 1 << 30, bj = 0;
-  for (int j = 0; j < NDISP; ++j) {
-    int c = costs[NDISP - 1 - j][tid];
-    if (c < best) { best = c; bj = j; }
-  }
-  if constexpr (STOP == WINNER) {
-    disp[frame + (long)y * W + x] = live(tex, bj);
-    minsad_out[frame + (long)y * W + x] = best;
-    return;
-  }
-  if constexpr (STOP == SAD) {   // the neighbours before the edge swap
-    disp[frame + (long)y * W + x] =
-        live(tex, bj > 0 ? costs[NDISP - bj][tid] : 0);
-    minsad_out[frame + (long)y * W + x] =
-        bj < NDISP - 1 ? costs[NDISP - 2 - bj][tid] : 0;
-    return;
-  }
-  bool uniq_ok = true;
-  if (uniq > 0) {
-    int thresh = best + (best * uniq) / 100;
-    for (int j = 0; j < NDISP; ++j)
-      if (abs(j - bj) > 1 && (int)costs[NDISP - 1 - j][tid] <= thresh)
-        uniq_ok = false;
-  }
-  if constexpr (STOP == UNIQ) {
-    disp[frame + (long)y * W + x] = live(tex, uniq_ok);
-    minsad_out[frame + (long)y * W + x] = best;
-    return;
-  }
-  int lo = (bj == 0) ? 1 : bj - 1;
-  int hi = (bj == NDISP - 1) ? NDISP - 2 : bj + 1;
-  int sad_n = costs[NDISP - 1 - lo][tid];
-  int sad_p = costs[NDISP - 1 - hi][tid];
-  int denom = sad_p + sad_n - 2 * best + abs(sad_p - sad_n);
-  int num = (sad_p - sad_n) * 256;
-  int frac = (denom != 0) ? num / denom : 0;   // C truncation
-  int d_act = NDISP - 1 - bj;
-  int v = ((d_act + mindisp) * 256 + frac + 15) >> 4;
-  bool valid = y >= r && y < H - r && x >= mindisp + NDISP - 1 + r &&
-               x < W - r && tex >= tex_thr && uniq_ok;
-  long o = frame + (long)y * W + x;
-  disp[o] = (int16_t)(valid ? v : (mindisp - 1) * 16);
-  minsad_out[o] = best;
-}
-
-// K1's wide kernel: any disparity count (>= 1), any radius (>= 0), int32
-// costs; same outputs as bm_kernel<FULL>.  A block of 32x8 threads takes a
-// 32 x TYW output tile of one frame (TYW = 8 * PIX rows, PIX pixels a
-// thread, rows ty + 8i), stages the tile's left rows with their box halo
-// once and the right rows per chunk of `dc` planes (the columns the
-// chunk's shifts reach), and walks the planes in groups of `gp`: the
-// texture plane |L - ftzero| first, then d = 0, 1, ..., ndisp - 1.  Per
-// group, three steps between barriers:
-// - the vertical pass: a thread per (plane, staged column) forms its TYW
-//   vertical (2r+1)-row sums as a running int32 sum;
-// - the horizontal pass: a thread per (plane, output row) runs the
-//   (2r+1)-column window along the row's 32 outputs, one sum in and one
-//   out a step, and writes the group's costs;
-// - the fold: each pixel's thread feeds its costs, in ascending d, into
-//   its one-pass walk, so no cost outlives its group.
-// Rows and columns outside the image add 0: such a column's sums are 0,
-// and the running sum takes only the staged rows inside the image (a
-// condition the whole block shares), so every sum equals the plain
-// version's zero-padded box sum exactly.  Shapes (wide_shape): PIX from r,
-// gp about two columns of vertical work a thread, dc about 64 planes, all
-// in dynamic shared memory; where the staged tile does not fit the card's
-// limit even at 8 rows and one plane a group, bm_wide_global_kernel takes
-// the launch.  What bounds it on this card: instruction throughput, as
-// the tiled kernel, mostly the vertical pass's ~5 terms (two byte loads each)
-// a pixel and plane at r = 10; no cost leaves the block.
-
-constexpr int WIDE_CHUNK = 64;    // right-image planes staged at once (about)
-constexpr int WIDE_COLS = 256;    // the global kernel's column chunk
 
 // The one pass over d ascending keeps the winner (ties to the larger d,
 // as the first minimum in the reversed order), the costs at its two
@@ -315,6 +177,42 @@ struct Walk {
   }
 };
 
+// Walk's pass written without branches, for the packed kernel, whose
+// whole warp steps through the same 64 disparities: `last` (the step
+// before set the winner) stands for d == bd + 1, `above` takes the cost
+// after every step that set the winner and is cleared once at the end
+// where the winner is the last disparity, and a cost joins `far` unless
+// it is the winner's right neighbour.  Ends in Walk's state.  The wide
+// kernels keep Walk's branches: on SelWalk they ran 0.6-2.6 % slower at
+// each of chip_smoke.py's seven wide configurations on an H100
+// (tools/bm_wide_probe.py, in turns), where the packed kernel ran 14 %
+// faster on it than on Walk.
+struct SelWalk : Walk {
+  bool last = false;
+
+  __device__ __forceinline__ void step(int c, int d) {
+    if (d >= 2) pref = min(pref, prev2);
+    const bool le = c <= best;
+    above = last ? c : above;
+    far = min(far, last ? INT_MAX : c);
+    far = le ? pref : far;
+    below = le ? prev : below;
+    bd = le ? d : bd;
+    best = min(best, c);
+    last = le;
+    prev2 = prev;
+    prev = c;
+  }
+  __device__ __forceinline__ void end(int ndisp) {
+    if (bd == ndisp - 1) above = 0;
+  }
+};
+
+// the uniqueness test of the walk's winner
+__device__ __forceinline__ bool unique(const Walk& w, int uniq) {
+  return uniq <= 0 || w.far > w.best + (w.best * uniq) / 100;
+}
+
 // the uniqueness test, the subpixel step and the validity test of pixel
 // (x, y), written at o
 __device__ __forceinline__ void wide_epilogue(
@@ -322,7 +220,7 @@ __device__ __forceinline__ void wide_epilogue(
     int r, int mindisp, int uniq, int tex_thr, int16_t* __restrict__ disp,
     int* __restrict__ minsad_out) {
   const int best = w.best, bd = w.bd;
-  const bool uniq_ok = uniq <= 0 || w.far > best + (best * uniq) / 100;
+  const bool uniq_ok = unique(w, uniq);
   // in the reversed order: sad_n at d + 1, sad_p at d - 1, each taking
   // the other at the ends
   const int sad_n = (bd == ndisp - 1) ? w.below : w.above;
@@ -336,6 +234,238 @@ __device__ __forceinline__ void wide_epilogue(
   disp[o] = (int16_t)(valid ? v : (mindisp - 1) * 16);
   minsad_out[o] = best;
 }
+
+// The packed kernel's shared memory, in 4-byte words then bytes: Vs
+// [PK_SB][PK_WORDS][vs] (the sub-band's vertical sums, then its costs in
+// place; vs odd, so a warp's 32 words of one row fall in 32 banks), Vt
+// [PK_SB][vs] (texture vertical sums), Rw [rows][rwc], Ls [rows][lcols].
+struct PackedLayout {
+  int lcols, rows, rwc, vs;
+  __host__ __device__ PackedLayout(int r, int nsb)
+      : lcols(TX + 2 * r), rows(PK_SB * nsb + 2 * r),
+        rwc(TX + 2 * r + NDISP - 1), vs((TX + 2 * r) | 1) {}
+  __host__ __device__ size_t words() const {
+    return (size_t)PK_SB * PK_WORDS * vs + (size_t)PK_SB * vs +
+           (size_t)rows * rwc;
+  }
+  __host__ __device__ size_t bytes() const {
+    return 4 * words() + (((size_t)rows * lcols + 3) & ~(size_t)3);
+  }
+};
+
+template <int STOP>
+__global__ void __launch_bounds__(NT, 2)
+bm_packed_kernel(const uint8_t* __restrict__ lp,
+                 const uint8_t* __restrict__ rp, Out<STOP>* __restrict__ out0,
+                 int* __restrict__ out1, int H, int W, int r, int mindisp,
+                 int ftzero, int uniq, int tex_thr, int nsb) {
+  extern __shared__ __align__(16) unsigned char pk_smem[];
+  const PackedLayout lay(r, nsb);
+  const int win = 2 * r + 1, lcols = lay.lcols, rows = lay.rows;
+  const int rwc = lay.rwc, vs = lay.vs;
+  uint32_t* Vs = (uint32_t*)pk_smem;
+  int* Vt = (int*)(Vs + PK_SB * PK_WORDS * vs);
+  uint32_t* Rw = (uint32_t*)(Vt + PK_SB * vs);
+  uint8_t* Ls = (uint8_t*)(Rw + rows * rwc);
+
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * PK_SB * nsb;
+  const long frame = (long)blockIdx.z * H * W;
+  const uint8_t* L = lp + frame;
+  const uint8_t* R = rp + frame;
+  // staged row yy is image row y0 - r + yy, inside the image on [ylo, yhi);
+  // staged right column i is image column x0 - r - (NDISP - 1) + i
+  const int ylo = max(0, r - y0), yhi = min(rows, H - y0 + r);
+  {   // a warp per staged row, its lanes along the row, every load of a
+      // row issued before its stores
+    const int lane = tid % 32, xl = x0 - r, xr = x0 - r - (NDISP - 1);
+    for (int yy = tid / 32; yy < rows; yy += NT / 32) {
+      const bool in = yy >= ylo && yy < yhi;
+      const uint8_t* Lrow = L + (long)(y0 - r + yy) * W;
+      const uint8_t* Rrow = R + (long)(y0 - r + yy) * W;
+      auto at = [&](const uint8_t* row, int x) -> uint32_t {
+        return in && x >= 0 && x < W ? row[x] : 0;
+      };
+      uint32_t lv[2], rv[4][4];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) lv[k] = at(Lrow, xl + lane + 32 * k);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          rv[k][b] = at(Rrow, xr + lane + 32 * k + b);
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        if (lane + 32 * k < lcols) Ls[yy * lcols + lane + 32 * k] = lv[k];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (lane + 32 * k < rwc)
+          Rw[yy * rwc + lane + 32 * k] =
+              rv[k][0] | rv[k][1] << 8 | rv[k][2] << 16 | rv[k][3] << 24;
+    }
+  }
+  __syncthreads();
+
+  // this thread's vertical pass: quads q = PK_QUADS * vj + k (d = 4q ..
+  // 4q + 3) of staged column vx; quad q's right word at staged row yy is
+  // Rw[yy * rwc + vx + NDISP - 4 - 4q], its byte b at d = 4q + 3 - b
+  const int vj = tid / lcols, vx = tid % lcols;
+  const bool vin = vj < PK_GROUPS && x0 - r + vx >= 0 && x0 - r + vx < W;
+  const uint32_t* Rc = Rw + vx + NDISP - 4 - 4 * PK_QUADS * vj;
+  const uint8_t* Lc = Ls + vx;
+  auto texterm = [&](int yy) {     // 0 outside the image
+    return yy >= ylo && yy < yhi ? abs((int)Lc[yy * lcols] - ftzero) : 0;
+  };
+  // quad k's running sums: S of its |L - R| words, B of their odd bytes
+  // (d = 4q + 2 low, d = 4q high), so S - (B << 8) holds the even bytes
+  // (d = 4q + 3 low, d = 4q + 1 high)
+  uint32_t S[PK_QUADS] = {}, B[PK_QUADS] = {};
+  int vt = 0;
+  if (vin) {                       // output row 0: staged rows 0..2r
+    for (int yy = 0; yy < win; ++yy) {
+      const uint32_t l = Lc[yy * lcols] * 0x01010101u;
+#pragma unroll
+      for (int k = 0; k < PK_QUADS; ++k) {
+        const uint32_t t = __vabsdiffu4(l, Rc[yy * rwc - 4 * k]);
+        S[k] += t;
+        B[k] += __byte_perm(t, 0, 0x4341);
+      }
+      if (vj == 0) vt += texterm(yy);
+    }
+  }
+  // the vertical sums of sub-band s's rows into Vs and Vt
+  auto vertical = [&](int s) {
+    if (vj >= PK_GROUPS) return;
+    for (int row = 0; row < PK_SB; ++row) {
+      const int oy = s * PK_SB + row;
+      if (vin && oy > 0) {
+        const int ya = oy - 1 + win, yb = oy - 1;
+        const uint32_t la = Lc[ya * lcols] * 0x01010101u;
+        const uint32_t lb = Lc[yb * lcols] * 0x01010101u;
+#pragma unroll
+        for (int k = 0; k < PK_QUADS; ++k) {
+          const uint32_t ta = __vabsdiffu4(la, Rc[ya * rwc - 4 * k]);
+          const uint32_t tb = __vabsdiffu4(lb, Rc[yb * rwc - 4 * k]);
+          S[k] += ta - tb;
+          B[k] += __byte_perm(ta, 0, 0x4341) - __byte_perm(tb, 0, 0x4341);
+        }
+        if (vj == 0) vt += texterm(ya) - texterm(yb);
+      }
+      uint32_t* Vo = Vs + (row * PK_WORDS + 2 * PK_QUADS * vj) * vs + vx;
+#pragma unroll
+      for (int k = 0; k < PK_QUADS; ++k) {
+        Vo[2 * k * vs] = B[k];
+        Vo[(2 * k + 1) * vs] = S[k] - (B[k] << 8);
+      }
+      if (vj == 0) Vt[row * vs + vx] = vt;
+    }
+  };
+
+  vertical(0);
+  __syncthreads();
+  const int x = x0 + tx;
+  for (int s = 0; s < nsb; ++s) {
+    if constexpr (STOP != VBOX) {
+      // the horizontal pass of word tx in row ty, in place: the cost of
+      // output ox over the vertical sum of staged column ox
+      uint32_t* Vr = Vs + (ty * PK_WORDS + tx) * vs;
+      uint32_t c = 0;
+      for (int t = 0; t < win; ++t) c += Vr[t];
+#pragma unroll
+      for (int ox = 0; ox < TX - 1; ++ox) {
+        const uint32_t out = Vr[ox];
+        Vr[ox] = c;
+        c += Vr[ox + win] - out;
+      }
+      Vr[TX - 1] = c;
+      __syncthreads();
+    }
+    // pixel (tx, ty) of the sub-band: its cost words (at VBOX its vertical
+    // sums, at its own staged column tx + r) and texture sum
+    constexpr bool kv = STOP == VBOX;
+    const uint32_t* Vp = Vs + ty * PK_WORDS * vs + tx + (kv ? r : 0);
+    uint32_t cw[PK_WORDS];
+#pragma unroll
+    for (int p = 0; p < PK_WORDS; ++p) cw[p] = Vp[p * vs];
+    int tex = 0;
+    if (kv) {
+      tex = Vt[ty * vs + tx + r];
+    } else {
+      for (int t = 0; t < win; ++t) tex += Vt[ty * vs + tx + t];
+    }
+    __syncthreads();
+    if (s + 1 < nsb) vertical(s + 1);
+
+    const int y = y0 + s * PK_SB + ty;
+    const long o = frame + (long)y * W + x;
+    const bool write = x < W && y < H;
+    if constexpr (STOP == VBOX || STOP == BOXES) {
+      int sum = tex;
+#pragma unroll
+      for (int p = 0; p < PK_WORDS; ++p)
+        sum += (int)(cw[p] & 0xffffu) + (int)(cw[p] >> 16);
+      if (write) {     // plane j = 0: d = NDISP - 1, the last word's low lane
+        out0[o] = (int)(cw[PK_WORDS - 1] & 0xffffu);
+        out1[o] = sum;
+      }
+    } else {
+      SelWalk w;
+#pragma unroll
+      for (int q = 0; q < NDISP / 4; ++q) {
+        w.step((int)(cw[2 * q] >> 16), 4 * q);
+        w.step((int)(cw[2 * q + 1] >> 16), 4 * q + 1);
+        w.step((int)(cw[2 * q] & 0xffffu), 4 * q + 2);
+        w.step((int)(cw[2 * q + 1] & 0xffffu), 4 * q + 3);
+      }
+      w.end(NDISP);
+      if (write) {
+        if constexpr (STOP == WINNER) {
+          out0[o] = live(tex, NDISP - 1 - w.bd);
+          out1[o] = w.best;
+        } else if constexpr (STOP == SAD) {   // before the edge swap
+          out0[o] = live(tex, w.above);
+          out1[o] = w.below;
+        } else if constexpr (STOP == UNIQ) {
+          out0[o] = live(tex, unique(w, uniq));
+          out1[o] = w.best;
+        } else {
+          wide_epilogue(w, tex, x, y, o, H, W, NDISP, r, mindisp, uniq,
+                        tex_thr, out0, out1);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// K1's wide kernel: any disparity count (>= 1), any radius (>= 0), int32
+// costs; same outputs as bm_packed_kernel<FULL>.  A block of 32x8 threads
+// takes a 32 x TYW output tile of one frame (TYW = 8 * PIX rows, PIX pixels a
+// thread, rows ty + 8i), stages the tile's left rows with their box halo
+// once and the right rows per chunk of `dc` planes (the columns the
+// chunk's shifts reach), and walks the planes in groups of `gp`: the
+// texture plane |L - ftzero| first, then d = 0, 1, ..., ndisp - 1.  Per
+// group, three steps between barriers:
+// - the vertical pass: a thread per (plane, staged column) forms its TYW
+//   vertical (2r+1)-row sums as a running int32 sum;
+// - the horizontal pass: a thread per (plane, output row) runs the
+//   (2r+1)-column window along the row's 32 outputs, one sum in and one
+//   out a step, and writes the group's costs;
+// - the fold: each pixel's thread feeds its costs, in ascending d, into
+//   its one-pass walk, so no cost outlives its group.
+// Rows and columns outside the image add 0: such a column's sums are 0,
+// and the running sum takes only the staged rows inside the image (a
+// condition the whole block shares), so every sum equals the plain
+// version's zero-padded box sum exactly.  Shapes (wide_shape): PIX from r,
+// gp about two columns of vertical work a thread, dc about 64 planes, all
+// in dynamic shared memory; where the staged tile does not fit the card's
+// limit even at 8 rows and one plane a group, bm_wide_global_kernel takes
+// the launch.  What bounds it on this card: instruction throughput,
+// mostly the vertical pass's ~5 terms (two byte loads each) a pixel and
+// plane at r = 10; no cost leaves the block.
+
+constexpr int WIDE_CHUNK = 64;    // right-image planes staged at once (about)
+constexpr int WIDE_COLS = 256;    // the global kernel's column chunk
 
 // One staged column's vertical (2r+1)-row sums for output rows
 // 0..rows_out-1 into V[0], V[stride], ...: the window of output row oy is
@@ -586,48 +716,64 @@ cudaError_t launch_wide(const uint8_t* lp, const uint8_t* rp, int16_t* disp,
   return cudaGetLastError();
 }
 
-// Launch 2 cut after STOP runs at bm_kernel<FULL>'s occupancy: a cut
-// that needs fewer registers or less static shared memory than FULL would
-// fit more blocks on an SM, so it takes dynamic shared memory until it
-// fits as many as FULL does, and is refused if it cannot.
+// Sub-bands a tile of the packed kernel at radius r: 64 rows where two
+// blocks fit an SM, else fewer.
+int packed_nsb(int r) {
+  int nsb = 8;
+  while (nsb > 1 && PackedLayout(r, nsb).bytes() > PK_SMEM) nsb /= 2;
+  return nsb;
+}
+
+// The packed kernel cut after STOP with `*smem` dynamic shared bytes: the
+// layout's, padded until the cut fits no more blocks per SM than FULL
+// (a cut that needs fewer registers would fit more); refused if it cannot
+// run at FULL's blocks per SM.
 template <int STOP>
-cudaError_t fit_occupancy(size_t* pad, int* blocks) {
-  cudaFuncAttributes full, mine;
+cudaError_t packed_occupancy(int r, size_t* smem, int* blocks) {
+  const size_t base = PackedLayout(r, packed_nsb(r)).bytes();
   int want = 0;
-  cudaError_t e = cudaFuncGetAttributes(&full, bm_kernel<FULL>);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&mine, bm_kernel<STOP>);
+  cudaError_t e = cudaFuncSetAttribute(
+      bm_packed_kernel<FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)base);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&want,
-                                                      bm_kernel<FULL>, NT, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &want, bm_packed_kernel<FULL>, NT, base);
   if (e != cudaSuccess) return e;
-  *pad = full.sharedSizeBytes > mine.sharedSizeBytes
-             ? full.sharedSizeBytes - mine.sharedSizeBytes : 0;
+  *smem = base;
   for (;;) {   // ends: past the card's limit the attribute is refused
-    e = cudaFuncSetAttribute(bm_kernel<STOP>,
+    e = cudaFuncSetAttribute(bm_packed_kernel<STOP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)*pad);
+                             (int)*smem);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, bm_kernel<STOP>, NT, *pad);
+          blocks, bm_packed_kernel<STOP>, NT, *smem);
     if (e != cudaSuccess) return e;
     if (*blocks <= want) break;
-    *pad += 1024;
+    *smem += 1024;
   }
   return *blocks == want ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
 template <int STOP>
-cudaError_t launch_bm(dim3 grid, cudaStream_t s, const uint8_t* lp,
-                      const uint8_t* rp, void* out0, void* out1, int H,
-                      int W, int r, int mindisp, int ftzero, int uniq,
-                      int tex_thr) {
-  size_t pad;
+cudaError_t launch_packed(const uint8_t* lp, const uint8_t* rp, void* out0,
+                          void* out1, int B, int H, int W, int r,
+                          int mindisp, int ftzero, int uniq, int tex_thr,
+                          cudaStream_t st) {
+  const int nsb = packed_nsb(r);
+  size_t smem = PackedLayout(r, nsb).bytes();
   int blocks;
-  cudaError_t e = fit_occupancy<STOP>(&pad, &blocks);
+  cudaError_t e =
+      STOP == FULL
+          ? cudaFuncSetAttribute(bm_packed_kernel<FULL>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem)
+          : packed_occupancy<STOP>(r, &smem, &blocks);
   if (e != cudaSuccess) return e;
-  bm_kernel<STOP><<<grid, dim3(TX, TY), pad, s>>>(
-      lp, rp, (Out<STOP>*)out0, (int*)out1, H, W, r, mindisp, ftzero,
-      uniq, tex_thr);
+  dim3 grid((W + TX - 1) / TX, (H + PK_SB * nsb - 1) / (PK_SB * nsb), B);
+  dim3 block(TX, TY);
+  bm_packed_kernel<STOP><<<grid, block, smem, st>>>(
+      lp, rp, (Out<STOP>*)out0, (int*)out1, H, W, r, mindisp, ftzero, uniq,
+      tex_thr, nsb);
   return cudaGetLastError();
 }
 
@@ -648,7 +794,7 @@ cudaError_t on_phase(int phase, F f) {
 void launch_prefilter(const void* left, const void* right, void* lp,
                       void* rp, int B, int H, int W, int cap,
                       cudaStream_t s) {
-  long total = (long)B * H * W;
+  long total = (long)B * H * ((W + 3) / 4);
   dim3 pgrid((unsigned)((total + 255) / 256), 2);
   prefilter_kernel<<<pgrid, 256, 0, s>>>(
       (const uint8_t*)left, (const uint8_t*)right, (uint8_t*)lp,
@@ -657,8 +803,8 @@ void launch_prefilter(const void* left, const void* right, void* lp,
 
 }  // namespace
 
-// K1: the tiled kernel, or with `wide` the wide kernel (the wrapper
-// chooses; the tiled kernel refuses what it cannot take).
+// K1: the packed kernel, or with `wide` the wide kernel (the wrapper
+// chooses; the packed kernel refuses what it cannot take).
 extern "C" int tpuslam_stereo_bm(const void* left, const void* right,
                                  void* lp_scratch, void* rp_scratch,
                                  void* disp, void* minsad, int B, int H,
@@ -672,55 +818,56 @@ extern "C" int tpuslam_stereo_bm(const void* left, const void* right,
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
   launch_prefilter(left, right, lp_scratch, rp_scratch, B, H, W, ftzero, s);
+  const uint8_t* lp = (const uint8_t*)lp_scratch;
+  const uint8_t* rp = (const uint8_t*)rp_scratch;
   if (wide)
-    return (int)launch_wide((const uint8_t*)lp_scratch,
-                            (const uint8_t*)rp_scratch, (int16_t*)disp,
-                            (int*)minsad, B, H, W, ndisp, r, mindisp, ftzero,
-                            uniq, tex_thr, s);
-  dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  bm_kernel<FULL><<<grid, dim3(TX, TY), 0, s>>>(
-      (const uint8_t*)lp_scratch, (const uint8_t*)rp_scratch,
-      (int16_t*)disp, (int*)minsad, H, W, r, mindisp, ftzero, uniq,
-      tex_thr);
-  return (int)cudaGetLastError();
+    return (int)launch_wide(lp, rp, (int16_t*)disp, (int*)minsad, B, H, W,
+                            ndisp, r, mindisp, ftzero, uniq, tex_thr, s);
+  return (int)launch_packed<FULL>(lp, rp, disp, minsad, B, H, W, r, mindisp,
+                                  ftzero, uniq, tex_thr, s);
 }
 
-// The phase harness: launch 1 into lp/rp and, past PREFILTER, launch 2
-// cut after `phase` into out0/out1 (int32; out0 int16 for FULL).
+// The phase harness: launch 1 into lp/rp and, past PREFILTER, the packed
+// kernel cut after `phase` into out0/out1 (int32; out0 int16 for FULL).
 extern "C" int tpuslam_stereo_bm_phase(const void* left, const void* right,
                                        void* lp, void* rp, void* out0,
                                        void* out1, int B, int H, int W,
                                        int r, int mindisp, int ftzero,
                                        int uniq, int tex_thr, int phase,
                                        void* stream) {
+  const int win = 2 * r + 1;
   if (r < 1 || r > RMAX || B < 1 || H < 3 || W < 3 || phase < 0 ||
-      phase >= NPHASES)
+      phase >= NPHASES || 2L * ftzero * win * win > 65535)
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
   launch_prefilter(left, right, lp, rp, B, H, W, ftzero, s);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || phase == PREFILTER) return (int)e;
-  dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
   return (int)on_phase(phase, [&](auto stop) {
-    return launch_bm<decltype(stop)::value>(
-        grid, s, (const uint8_t*)lp, (const uint8_t*)rp, out0, out1, H, W, r,
-        mindisp, ftzero, uniq, tex_thr);
+    return launch_packed<decltype(stop)::value>(
+        (const uint8_t*)lp, (const uint8_t*)rp, out0, out1, B, H, W, r,
+        mindisp, ftzero, uniq, tex_thr, s);
   });
 }
 
-// The harness's launch 2 for `phase` (> PREFILTER) on the current card:
-// registers per thread, shared memory per block (static and padding) and
-// blocks per SM, into out[0..2].
-extern "C" int tpuslam_stereo_bm_phase_occupancy(int phase, int* out) {
+// The packed kernel cut after `phase` (> PREFILTER) at radius r on the
+// current card: registers per thread, shared memory per block (dynamic,
+// with its padding, and static), blocks per SM and sub-bands of 8 output
+// rows a tile (packed_nsb), into out[0..3].
+extern "C" int tpuslam_stereo_bm_phase_occupancy(int phase, int r,
+                                                 int* out) {
+  if (r < 1 || r > RMAX) return (int)cudaErrorInvalidValue;
   return (int)on_phase(phase, [&](auto stop) {
     constexpr int STOP = decltype(stop)::value;
     cudaFuncAttributes a;
-    size_t pad;
-    cudaError_t e = fit_occupancy<STOP>(&pad, &out[2]);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, bm_kernel<STOP>);
+    size_t smem;
+    cudaError_t e = packed_occupancy<STOP>(r, &smem, &out[2]);
+    if (e == cudaSuccess)
+      e = cudaFuncGetAttributes(&a, bm_packed_kernel<STOP>);
     if (e == cudaSuccess) {
       out[0] = a.numRegs;
-      out[1] = (int)(a.sharedSizeBytes + pad);
+      out[1] = (int)(a.sharedSizeBytes + smem);
+      out[3] = packed_nsb(r);
     }
     return e;
   });

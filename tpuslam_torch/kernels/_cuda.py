@@ -30,7 +30,7 @@ configuration lies outside what the kernel was built for; then the plain
 version runs on the card, where tpuslam's own dispatch takes its XLA path
 too (GFTT at a block size other than K2's 3).  The choice is made from the
 configuration before any launch: a failed build or launch inside the
-envelope raises.  K1 takes every StereoBM configuration (in its tiled or
+envelope raises.  K1 takes every StereoBM configuration (in its packed or
 its wide kernel), as the reference's strip kernel does.
 """
 

@@ -248,16 +248,17 @@ def stereo_bm_phase_plain(left: torch.Tensor, right: torch.Tensor,
     return _stack_frames(left, right, cfg, phase)
 
 
-# K1's tiled kernel keeps the 64 costs of a pixel as uint16: a cost is at
-# most 2 * prefilter_cap * block_size**2
+# K1's packed kernel keeps its vertical sums and costs as two 16-bit lanes
+# of a 32-bit word: a cost is at most 2 * prefilter_cap * block_size**2
 K1_MAX_COST = 65535
 
 
-def k1_tiled_refusal(cfg: StereoBMConfig) -> Exception | None:
-    """Why K1's tiled kernel (the main path's, and the one the phase
+def k1_packed_refusal(cfg: StereoBMConfig) -> Exception | None:
+    """Why K1's packed kernel (the main path's, and the one the phase
     harness cuts) cannot take `cfg`, or None where it can: costs within its
-    uint16 (2 * cap * block**2 <= 65535), 64 disparities, an odd block of
-    3..31.  K1 runs every other configuration in its wide kernel."""
+    16-bit lanes (2 * cap * block**2 <= 65535), 64 disparities, an odd
+    block of 3..31.  K1 runs every other configuration in its wide
+    kernel."""
     max_cost = 2 * cfg.prefilter_cap * cfg.block_size ** 2
     if max_cost > K1_MAX_COST:
         return ValueError(
@@ -266,18 +267,18 @@ def k1_tiled_refusal(cfg: StereoBMConfig) -> Exception | None:
             f"{max_cost} > {K1_MAX_COST}, K1's uint16 cost limit")
     if cfg.num_disparities != 64:
         return NotImplementedError(
-            "K1's tiled kernel is built for num_disparities=64")
+            "K1's packed kernel is built for num_disparities=64")
     if cfg.block_size % 2 == 0 or not 3 <= cfg.block_size <= 31:
         return ValueError(f"block_size {cfg.block_size}: odd, 3..31")
     return None
 
 
-def _check_bm_args(left, right, cfg: StereoBMConfig, tiled: bool) -> None:
-    """What kernel K1 takes: with `tiled` (the phase harness) only what
-    k1_tiled_refusal lets through, checked first so that it is refused
+def _check_bm_args(left, right, cfg: StereoBMConfig, packed: bool) -> None:
+    """What kernel K1 takes: with `packed` (the phase harness) only what
+    k1_packed_refusal lets through, checked first so that it is refused
     whatever the tensors; a CUDA uint8 (B, H, W) pair of at least 3x3
     pixels; at least one disparity and a block of at least one pixel."""
-    refusal = k1_tiled_refusal(cfg) if tiled else None
+    refusal = k1_packed_refusal(cfg) if packed else None
     if refusal is not None:
         raise refusal
     _cuda.expect(left, "left", torch.uint8, 3)
@@ -300,10 +301,10 @@ def _bm_params(left, cfg: StereoBMConfig):
 def stereo_bm_cuda(left: torch.Tensor, right: torch.Tensor,
                    cfg: StereoBMConfig = StereoBMConfig()):
     """Kernel K1 (csrc/stereo_bm.cu): same contract as stereo_bm_plain.
-    Its tiled kernel where k1_tiled_refusal is None, else its wide kernel:
-    the choice is made from the configuration alone."""
-    _check_bm_args(left, right, cfg, tiled=False)
-    wide = k1_tiled_refusal(cfg) is not None
+    Its packed kernel where k1_packed_refusal is None, else its wide
+    kernel: the choice is made from the configuration alone."""
+    _check_bm_args(left, right, cfg, packed=False)
+    wide = k1_packed_refusal(cfg) is not None
     lp = torch.empty_like(left)          # prefiltered images (scratch)
     rp = torch.empty_like(right)
     disp = torch.empty_like(left, dtype=torch.int16)
@@ -319,9 +320,9 @@ def stereo_bm_phase_cuda(left: torch.Tensor, right: torch.Tensor,
     """The K1 phase harness (csrc/stereo_bm.cu, tpuslam_stereo_bm_phase):
     K1's prefilter launch and, past `prefilter`, K1's kernel cut after
     `phase`.  Same contract as stereo_bm_phase_plain, for the
-    configurations of K1's tiled kernel; no plain fallback."""
+    configurations of K1's packed kernel; no plain fallback."""
     _check_phase(phase)
-    _check_bm_args(left, right, cfg, tiled=True)
+    _check_bm_args(left, right, cfg, packed=True)
     lp = torch.empty_like(left)
     rp = torch.empty_like(right)
     if phase == "prefilter":
@@ -571,12 +572,32 @@ def stereo_bm_wide_shape(cfg: StereoBMConfig) -> dict:
     return dict(zip(WIDE_SHAPE_KEYS, out))
 
 
-def stereo_bm_phase_occupancy(phase: str):
+def _packed_occupancy(phase: str, cfg: StereoBMConfig) -> tuple:
+    """csrc/stereo_bm.cu tpuslam_stereo_bm_phase_occupancy for `cfg`:
+    (registers, shared bytes, blocks per SM, sub-bands a tile)."""
+    refusal = k1_packed_refusal(cfg)
+    if refusal is not None:
+        raise refusal
+    return _cuda.attributes("stereo_bm", "tpuslam_stereo_bm_phase_occupancy",
+                            4, PHASES.index(phase), cfg.block_size // 2)
+
+
+def stereo_bm_packed_shape(cfg: StereoBMConfig = StereoBMConfig()) -> dict:
+    """The launch shape K1's packed kernel takes for `cfg` on the current
+    card: output rows and columns per block, sub-bands of 8 rows per
+    tile, shared bytes per block, registers per thread and blocks per
+    SM."""
+    regs, smem, blocks, nsb = _packed_occupancy("full", cfg)
+    return dict(rows=8 * nsb, columns=32, sub_bands=nsb, shared_bytes=smem,
+                registers=regs, blocks_per_sm=blocks)
+
+
+def stereo_bm_phase_occupancy(phase: str,
+                              cfg: StereoBMConfig = StereoBMConfig()):
     """(registers per thread, shared bytes per block, blocks per SM) of the
-    harness's K1 kernel cut after `phase` (not `prefilter`) on the current
-    card; every cut runs at K1's (`full`) blocks per SM."""
+    harness's K1 kernel cut after `phase` (not `prefilter`) for `cfg` on
+    the current card; every cut runs at K1's (`full`) blocks per SM."""
     _check_phase(phase)
     if phase == "prefilter":
         raise ValueError("the prefilter phase runs no cut of K1's kernel")
-    return _cuda.attributes("stereo_bm", "tpuslam_stereo_bm_phase_occupancy",
-                            3, PHASES.index(phase))
+    return _packed_occupancy(phase, cfg)[:3]

@@ -1,24 +1,29 @@
-"""K1's wide kernel (csrc/stereo_bm.cu, `bm_wide_kernel`) on the card,
-timed in turns with another version of the source.
+"""K1's wide and packed kernels (csrc/stereo_bm.cu, `bm_wide_kernel`,
+`bm_packed_kernel`) on the card, timed in turns with another version of
+the source.
 
-    python -m tpuslam_torch.tools.bm_wide_probe [--source FILE] [--turns N]
+    python -m tpuslam_torch.tools.bm_wide_probe [--source FILE ...]
+        [--turns N] [--cases CASE ...]
 
-Builds csrc/stereo_bm.cu and, with --source, FILE (another version of it
-with the same launcher `tpuslam_stereo_bm`, e.g. a parent's from an
-unpacked archive) with `-Xptxas -v`, in parallel
-(`_cuda.build_versions`), and renders the bench's first 30-frame
-chunk (tools/probe_bm_parts.py BENCH).  At each case of CASES each
-version's K1 is held bit for bit to the plain version (disparity and
-min-SAD) and timed with tools/timing.py (spun `time_ms`, unspun
-`call_ms`), the versions in turns (FILE, this, this, FILE), N times; the
-plain version is timed once.  The cases: the wide kernel at chip_smoke.py's
-configurations on one frame and at 128 disparities on the chunk; at the
-main path's configuration on the chunk, the tiled kernel (`main`, the
-main path's launch) and the wide kernel launched in its place
-(`main_wide`, which the main path never runs).  Prints each case's
-bound (tools/timing.py `bound`: the pair in and the two outputs, 8 bytes a
-pixel; 6 operations a pixel and disparity), this version's launch shape
-(`stereo_bm_wide_shape`) and each kernel's registers, shared memory and
+Builds csrc/stereo_bm.cu and, with --source, each FILE (another version
+of it with the same launcher `tpuslam_stereo_bm`, e.g. a parent's from an
+unpacked archive; named `other` where there is one, else by its file
+name) with `-Xptxas -v`, in parallel (`_cuda.build_versions`), and
+renders the bench's first 30-frame chunk (tools/probe_bm_parts.py
+BENCH).  At each case of CASES each version's K1 is held bit for bit to
+the plain version (disparity and min-SAD) and timed with tools/timing.py
+(spun `time_ms`, unspun `call_ms`), the versions in turns (backwards,
+then forwards: FILE, this, this, FILE for one FILE), N times; the plain
+version is timed once.  The cases: the wide kernel at chip_smoke.py's
+seven configurations (K1_WIDE), six on one frame and 128 disparities on
+the chunk; at the main path's configuration on the chunk, K1's main-path
+kernel (`main`, the main path's launch: this version's packed kernel)
+and the wide kernel launched in its place (`main_wide`, which the main
+path never runs).
+Prints each case's bound (tools/timing.py `bound`: the pair in and the two
+outputs, 8 bytes a pixel; 6 operations a pixel and disparity), this
+version's launch shape (`stereo_bm_wide_shape`,
+`stereo_bm_packed_shape`) and each kernel's registers, shared memory and
 spills, then one JSON line.  Needs a CUDA card.
 """
 
@@ -41,9 +46,12 @@ from .timing import bound, call_ms, time_ms
 
 # case -> (StereoBMConfig keywords, frames of the chunk, wide kernel)
 CASES = {
+    "ndisp1": (dict(num_disparities=1), 1, True),
     "ndisp32": (dict(num_disparities=32), 1, True),
-    "cost": (dict(prefilter_cap=63, block_size=23), 1, True),
+    "ndisp80": (dict(num_disparities=80), 1, True),
     "block33": (dict(prefilter_cap=15, block_size=33), 1, True),
+    "block51": (dict(prefilter_cap=31, block_size=51), 1, True),
+    "cost": (dict(prefilter_cap=63, block_size=23), 1, True),
     "ndisp128": (dict(num_disparities=128, min_disparity=-5), CHUNK, True),
     "main": ({}, CHUNK, False),
     "main_wide": ({}, CHUNK, True),
@@ -51,8 +59,8 @@ CASES = {
 
 
 def k1_call(lib, left, right, cfg, wide):
-    """A call of the library's K1 on the (B, H, W) pair, the tiled or the
-    wide kernel.  Returns (call, (disp, minsad))."""
+    """A call of the library's K1 on the (B, H, W) pair, its main-path
+    kernel or the wide kernel.  Returns (call, (disp, minsad))."""
     fn = lib.tpuslam_stereo_bm
     fn.argtypes, fn.restype = _cuda.SIGNATURES["stereo_bm"][1], ctypes.c_int
     lp, rp = torch.empty_like(left), torch.empty_like(right)
@@ -71,11 +79,12 @@ def k1_call(lib, left, right, cfg, wide):
     return call, (disp, minsad)
 
 
-def run(lefts, rights, source=None, turns=1, cases=CASES):
+def run(lefts, rights, sources=(), turns=1, cases=CASES):
     """Build, hold and time; returns one row per case."""
     versions = [("this", _cuda.CSRC / "stereo_bm.cu")]
-    if source:
-        versions.append(("other", Path(source)))
+    for path in sources:
+        versions.append(("other" if len(sources) == 1 else Path(path).stem,
+                         Path(path)))
     built = _cuda.build_versions("stereo_bm", versions)
     for name, (_, report, _) in built.items():
         for kern, r in report.items():
@@ -112,7 +121,8 @@ def run(lefts, rights, source=None, turns=1, cases=CASES):
                    ops=6 * cfg.num_disparities * px,
                    plain_ms=time_ms(lambda: BM.stereo_bm_plain(lb, rb, cfg)),
                    valid=float((want[0] >= 0).float().mean()),
-                   shape=BM.stereo_bm_wide_shape(cfg) if wide else None)
+                   shape=(BM.stereo_bm_wide_shape if wide else
+                          BM.stereo_bm_packed_shape)(cfg))
         for name in built:
             row[name] = dict(ms=statistics.median(ms[name]),
                              ms_turns=ms[name],
@@ -120,7 +130,7 @@ def run(lefts, rights, source=None, turns=1, cases=CASES):
                              bit_equal=equal[name])
         rows.append(row)
         print(f"# K1 {case} ({frames} x {lb.shape[1]}x{lb.shape[2]}, "
-              f"{'wide' if wide else 'tiled'} kernel): " + "; ".join(
+              f"{'wide' if wide else 'packed'} kernel): " + "; ".join(
                   f"{n} {row[n]['ms']:.4f} ms spun (turns "
                   f"{[round(x, 4) for x in row[n]['ms_turns']]}), "
                   f"{row[n]['call_ms']:.4f} unspun" for n in built) +
@@ -132,7 +142,8 @@ def run(lefts, rights, source=None, turns=1, cases=CASES):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--source", help="another version of csrc/stereo_bm.cu")
+    ap.add_argument("--source", nargs="+", default=[],
+                    help="other versions of csrc/stereo_bm.cu")
     ap.add_argument("--turns", type=int, default=1)
     ap.add_argument("--cases", nargs="*", default=list(CASES))
     args = ap.parse_args(argv)

@@ -5,16 +5,17 @@ the card, each cut held bit for bit to its plain PyTorch twin, and timed.
 
 Counterpart of tools/probe_bm_parts.py, the TPU probe that times the
 Pallas strip kernel cut after each of its passes.  The cuts here are of
-K1's own code (csrc/stereo_bm.cu, `bm_kernel<STOP>`), at the same semantic
-points; kernels/stereo_bm.py PHASES lists them and their two outputs:
+K1's own main-path kernel (csrc/stereo_bm.cu, `bm_packed_kernel<STOP>`),
+at the same semantic points; kernels/stereo_bm.py PHASES lists them and
+their two outputs:
 
     phase      probe's variant   what the phase adds
     prefilter  (its prefilter)   K1's launch 1, the X-Sobel prefilter
     vbox       pass1             staging and the vertical box pass
     boxes      mm                the horizontal box pass, 64 costs per pixel
-    winner     p3min             the first minimum over disparities
-    sad        p3sad             the two neighbour SADs
-    uniq       p3uniq            the uniqueness gate
+    winner     p3min             the walk's first minimum over disparities
+    sad        p3sad             the walk's two neighbour SADs
+    uniq       p3uniq            the walk's far minimum, the uniqueness gate
     full       full              subpixel, gates, K1's outputs (K1 itself)
 
 Input: the main path's first chunk, the first 30 frames of the bench
@@ -92,7 +93,8 @@ def run(lefts: torch.Tensor, rights: torch.Tensor,
     for bit to its plain twin (the full phase also to K1 itself) and
     timed.  Raises on a mismatch or a phase that lost work.  Returns the
     numbers: per phase ms, its interquartile range, net ms, share of the
-    full phase, the bound of what it adds and its occupancy; the full
+    full phase, the bound of what it adds and its occupancy; the packed
+    kernel's launch shape (stereo_bm_packed_shape); the full
     phase's ms, its unspun ms (host dispatch included), bound, and the ms
     of its plain twin and of K1 itself; the harness's launches."""
     n0 = _cuda.LAUNCHES["stereo_bm_phase"]
@@ -126,7 +128,7 @@ def run(lefts: torch.Tensor, rights: torch.Tensor,
         if phase != "prefilter":
             phases[phase].update(zip(
                 ("registers", "smem_bytes", "blocks_per_sm"),
-                BM.stereo_bm_phase_occupancy(phase)))
+                BM.stereo_bm_phase_occupancy(phase, cfg)))
         prev_ms = ms
     for p in phases.values():
         p["share"] = p["net_ms"] / prev_ms
@@ -136,7 +138,8 @@ def run(lefts: torch.Tensor, rights: torch.Tensor,
     full_call_ms = call_ms(lambda: BM.stereo_bm_phase_cuda(
         lefts, rights, cfg, "full"), runs)
     b_ms, b_by = bound(full_bytes, full_ops)
-    return dict(phases=phases, ms=prev_ms, call_ms=full_call_ms,
+    return dict(phases=phases, shape=BM.stereo_bm_packed_shape(cfg),
+                ms=prev_ms, call_ms=full_call_ms,
                 plain_ms=plain_ms, k1_ms=k1_ms,
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                 launches=_cuda.LAUNCHES["stereo_bm_phase"] - n0)
@@ -154,6 +157,10 @@ def table(res) -> str:
         lines.append(f"{name:10s} {p['ms']:9.3f} {p['iqr_ms']:7.3f} "
                      f"{p['net_ms']:9.3f} {100 * p['share']:6.1f}% "
                      f"{p['bound_ms']:9.4f} {p['bound_by']:>10s} {occ}")
+    sh = res["shape"]
+    lines.append(f"packed kernel: a {sh['columns']} x {sh['rows']} tile a "
+                 f"block, {sh['registers']} registers, {sh['shared_bytes']} "
+                 f"B shared memory, {sh['blocks_per_sm']} blocks per SM")
     lines.append(f"full phase: {res['ms']:.3f} ms (unspun "
                  f"{res['call_ms']:.3f} ms), K1 itself "
                  f"{res['k1_ms']:.3f} ms, plain twin {res['plain_ms']:.3f} "

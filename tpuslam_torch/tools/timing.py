@@ -22,7 +22,11 @@ import statistics
 import torch
 
 # published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
-# 32-bit non-tensor operations/s
+# 32-bit non-tensor operations/s (132 SMs x 128 FP32 lanes x an FMA's two
+# operations x 1.98 GHz).  K1's integer work is counted at the same rate:
+# its 64 INT32 lanes an SM issue packed instructions (a VABSDIFF4 is four
+# byte absolute differences, an add on a word of two 16-bit lanes two
+# sums), and every value it sums fits 16 bits, so is exact in FP32 too
 HBM_BPS, OPS_32 = 3.35e12, 67e12
 TIMING_RUNS = 20
 SPIN_CYCLES = 2_000_000              # ~1 ms at the H100's clocks
