@@ -12,12 +12,17 @@
   in chunks of 3 (two whole chunks, the buffers' rotation back to the
   first, a partial last chunk) equals `run_staged` on the same frames
   exactly: poses, inliers, lost flags and the Mapper's graph
-  (tests/test_run_ingest.py does the same for tpuslam).
+  (tests/test_run_ingest.py does the same for tpuslam).  The run_ingest
+  runs with the span recorder (runtime/perf.py) on and run_staged with it
+  off, so the equality also holds the recorder to changing nothing; its
+  spans nest as dispatch, the VO step and the consumer run.
 All exact: the decoders and the resize are integer arithmetic, and both
 runs compute the same frames in the same order with the same draws.
 """
 
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -234,11 +239,13 @@ N_INGEST, CHUNK_INGEST = 8, 3
 def ingest_runs(tmp_path_factory):
     """The port's run_staged and run_ingest (after reset()) over the same
     written 8-frame sequence, each with its own Mapper, chunk 3 (map_update
-    3, so the chunk stays 3)."""
+    3, so the chunk stays 3); run_ingest with the span recorder on, its
+    spans and counters and its perf_counter_ns bounds in `traced`."""
     from tpuslam_torch.config import MapperConfig, SlamConfig
     from tpuslam_torch.io.dataset import StereoImageDataset
     from tpuslam_torch.io.synthetic import sequence_camera, write_sequence
     from tpuslam_torch.mapping.mapper import Mapper
+    from tpuslam_torch.runtime import perf
     from tpuslam_torch.runtime.fast_pipeline import FastSlamPipeline
     seq = str(tmp_path_factory.mktemp("ingestseq"))
     write_sequence(seq, n_frames=N_INGEST, speed=0.4, yaw_rate=0.002,
@@ -265,13 +272,23 @@ def ingest_runs(tmp_path_factory):
                               (ds.right_dir, ds._right))]
     pipe.reset()
     m_ingest = mapper()
-    ingest = pipe.run_ingest(*paths, [it["stamp"] for it in items],
-                             mapper=m_ingest)
-    return staged, ingest, m_staged, m_ingest
+    perf.drain()
+    perf.enable()
+    try:
+        t0 = time.perf_counter_ns()
+        ingest = pipe.run_ingest(*paths, [it["stamp"] for it in items],
+                                 mapper=m_ingest)
+        t1 = time.perf_counter_ns()
+    finally:
+        perf.disable()
+    events, counters = perf.drain()
+    traced = dict(events=events, counters=counters, t0=t0, t1=t1,
+                  producer=threading.get_native_id())
+    return staged, ingest, m_staged, m_ingest, traced
 
 
 def test_run_ingest_matches_staged(ingest_runs):
-    staged, ingest, _, _ = ingest_runs
+    staged, ingest, _, _, _ = ingest_runs
     assert len(staged) == len(ingest) == N_INGEST
     assert not any(i.lost for i in staged[1:])
     for a, b in zip(staged, ingest):
@@ -281,7 +298,7 @@ def test_run_ingest_matches_staged(ingest_runs):
 
 
 def test_run_ingest_builds_the_same_graph(ingest_runs):
-    _, _, m_staged, m_ingest = ingest_runs
+    _, _, m_staged, m_ingest, _ = ingest_runs
     pa, la = m_staged.get_graph()
     pb, lb = m_ingest.get_graph()
     assert sorted(pa) == sorted(pb) and len(pa) == N_INGEST
@@ -292,6 +309,72 @@ def test_run_ingest_builds_the_same_graph(ingest_runs):
     for (_, a), (_, b) in zip(la.items(), lb.items()):
         np.testing.assert_array_equal(a.transform, b.transform)
     assert m_staged.vwd._count == m_ingest.vwd._count > 0
+
+
+def _children(events, parent):
+    return [e for e in events if e.parent == parent.id]
+
+
+def test_traced_run_ingest_nests_the_dispatch_spans(ingest_runs):
+    """Each pipe.dispatch holds one front end (its four stages) and a VO
+    step a frame (match, RANSAC, refine, pose), then the chunk's
+    dictionary update and the fetch."""
+    *_, traced = ingest_runs
+    ev = traced["events"]
+    dispatches = [e for e in ev if e.name == "pipe.dispatch"]
+    assert [e.chunk for e in dispatches] == [(1, 0), (1, 3), (1, 6)]
+    assert [e.frames for e in dispatches] == [3, 3, 2]
+    for d in dispatches:
+        kids = _children(ev, d)
+        assert [k.name for k in kids] == ["vo.frontend"] + ["vo.step"] * 3 \
+            + ["dict.dispatch", "pipe.fetch"]
+        assert all(k.chunk == d.chunk and k.thread == d.thread
+                   for k in kids)
+        assert [k.name for k in _children(ev, kids[0])] == \
+            ["fe.disparity", "fe.gftt", "fe.orb", "fe.lift"]
+        for step in kids[1:4]:
+            assert [k.name for k in _children(ev, step)] == \
+                ["vo.match", "vo.ransac", "vo.refine", "vo.pose"]
+        # pipe.dispatch's own time: no more than a tenth here
+        own = (d.end_ns - d.start_ns) - sum(k.end_ns - k.start_ns
+                                            for k in kids)
+        assert 0 <= own < 0.1 * (d.end_ns - d.start_ns)
+    assert traced["counters"] == {"ingest.frames": 8, "pipe.chunks": 3,
+                                  "pipe.frames": 8, "dict.nodes": 3}
+
+
+def test_traced_run_ingest_consumes_each_chunk_under_its_id(ingest_runs):
+    """Each pipe.consume, on the consumer thread, carries its dispatch's
+    chunk id and frames; its children wait, fetch, unpack and feed the
+    Mapper a frame at a time."""
+    *_, traced = ingest_runs
+    ev = traced["events"]
+    dispatches = [e for e in ev if e.name == "pipe.dispatch"]
+    consumes = [e for e in ev if e.name == "pipe.consume"]
+    assert [(c.chunk, c.frames) for c in consumes] == \
+        [(d.chunk, d.frames) for d in dispatches]
+    for c, d in zip(consumes, dispatches):
+        assert c.thread != d.thread and c.start_ns >= d.end_ns
+        names = [k.name for k in _children(ev, c)]
+        assert names == ["dict.fetch", "consume.unpack"] + \
+            ["mapper.process"] * c.frames
+    # the Mapper's dictionary and loop-closure step, at each full node
+    assert sum(e.name == "lc.search" for e in ev) == 2
+
+
+def test_traced_run_ingest_producer_spans_cover_the_run(ingest_runs):
+    """The producer's spans lie inside the run and cover it but for the
+    loop's own bookkeeping."""
+    *_, traced = ingest_runs
+    t0, t1 = traced["t0"], traced["t1"]
+    ev = traced["events"]
+    assert all(t0 <= e.start_ns <= e.end_ns <= t1 for e in ev)
+    top = [e for e in ev if e.thread == traced["producer"] and not e.parent]
+    assert {e.name for e in top} == {
+        "pipe.open", "ingest.open", "ingest.next", "ingest.copy",
+        "ingest.upload", "pipe.dispatch", "pipe.handoff", "pipe.drain",
+        "ingest.close"}
+    assert sum(e.end_ns - e.start_ns for e in top) > 0.95 * (t1 - t0)
 
 
 def test_run_ingest_refuses_other_image_sizes(png_dir):

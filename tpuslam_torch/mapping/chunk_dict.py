@@ -29,6 +29,8 @@ import threading
 import numpy as np
 import torch
 
+from ..runtime import perf
+
 BIG = 1e30
 
 
@@ -147,36 +149,40 @@ class ChunkDictDriver:
         tensors (the VO chunk's outputs); node_active (K,) host bools.
         Queues the update and the copies of its decisions to the host;
         returns the handle for fetch()."""
-        K = int(descs.shape[0])
-        self._ensure_capacity(K)   # worst case uses qcap even if C < qcap
-        C = int(descs.shape[1])
-        qcap = min(self.qcap, C)
-        mf = min(self.max_features, C)
-        outs = {k: [] for k in ("keep", "unique", "i1", "count_after", "ok")}
-        for j in range(K):
-            active = torch.tensor(bool(node_active[j]), device=self.device)
-            self.count, keep, unique, i1, ok = _node_update(
-                self.train, self.count, descs[j], resps[j], n_kpts[j],
-                active, qcap, self._nndr_t, mf)
-            for k, v in zip(outs, (keep, unique, i1, self.count, ok)):
-                outs[k].append(v)
-        host = {k: torch.stack(v).to("cpu", non_blocking=True)
-                for k, v in outs.items()}
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        return dict(host=host, event=event, k=K)
+        with perf.span("dict.dispatch"):
+            K = int(descs.shape[0])
+            self._ensure_capacity(K)   # worst case uses qcap even if C < qcap
+            C = int(descs.shape[1])
+            qcap = min(self.qcap, C)
+            mf = min(self.max_features, C)
+            outs = {k: [] for k in ("keep", "unique", "i1", "count_after",
+                                    "ok")}
+            for j in range(K):
+                active = torch.tensor(bool(node_active[j]), device=self.device)
+                self.count, keep, unique, i1, ok = _node_update(
+                    self.train, self.count, descs[j], resps[j], n_kpts[j],
+                    active, qcap, self._nndr_t, mf)
+                for k, v in zip(outs, (keep, unique, i1, self.count, ok)):
+                    outs[k].append(v)
+            perf.count("dict.nodes", K)
+            host = {k: torch.stack(v).to("cpu", non_blocking=True)
+                    for k, v in outs.items()}
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+            return dict(host=host, event=event, k=K)
 
     def fetch(self, handle: dict) -> dict:
-        if handle["event"] is not None:
-            handle["event"].synchronize()
-        out = {k: v.numpy() for k, v in handle["host"].items()}
-        if not bool(np.all(out["ok"])):
-            raise RuntimeError("chunk dictionary capacity exceeded")
-        with self._lock:
-            # the exact count replaces this chunk's worst-case share
-            # (fetches happen in dispatch order)
-            self._base = int(out["count_after"][-1])
-            self._inflight_nodes -= handle["k"]
-        return out
+        with perf.span("dict.fetch"):
+            if handle["event"] is not None:
+                handle["event"].synchronize()
+            out = {k: v.numpy() for k, v in handle["host"].items()}
+            if not bool(np.all(out["ok"])):
+                raise RuntimeError("chunk dictionary capacity exceeded")
+            with self._lock:
+                # the exact count replaces this chunk's worst-case share
+                # (fetches happen in dispatch order)
+                self._base = int(out["count_after"][-1])
+                self._inflight_nodes -= handle["k"]
+            return out

@@ -32,6 +32,7 @@ import torch
 from ..config import MapperConfig, MatchingConfig, PnPConfig
 from ..geometry import transform as T
 from ..geometry.camera import StereoCameraModel
+from ..runtime import perf
 from ..vo.frame import Frame, limit_keypoints
 from ..vo.registration import compute_transform
 from .dictionary import VWDictionary
@@ -116,25 +117,29 @@ class Mapper:
                     args=(node, self._lc_result, dev), daemon=True)
                 self._lc_thread.start()
             else:
-                link = self._dictionary_and_loop_closure(node)
+                with perf.span("lc.search"):
+                    link = self._dictionary_and_loop_closure(node)
                 if link is not None:
                     self.add_link(link)
 
         self._frame_processed += 1
 
     def _lc_worker(self, node: Node, result: list, dev: torch.device):
-        try:
-            if dev.type == "cuda":
-                torch.cuda.set_device(dev)
-            result[0] = self._dictionary_and_loop_closure(node)
-        except BaseException as e:       # re-raised by join_loop_closure
-            result[1] = e
+        with perf.span("lc.search"):
+            try:
+                if dev.type == "cuda":
+                    torch.cuda.set_device(dev)
+                result[0] = self._dictionary_and_loop_closure(node)
+            except BaseException as e:   # re-raised by join_loop_closure
+                result[1] = e
 
     def join_loop_closure(self) -> None:
         """Join a pending async loop-closure worker and insert its link
         (the reference's join-before-reuse, Mapper.cpp:97-106).  An error
         raised on the worker is raised here."""
-        if self._lc_thread is not None:
+        if self._lc_thread is None:
+            return
+        with perf.span("lc.join"):
             self._lc_thread.join()
             self._lc_thread = None
             link, err = self._lc_result

@@ -31,6 +31,7 @@ from ..geometry.camera import StereoCameraModel
 from ..vo.frame import Frame
 from ..vo.fused import make_fused_chunk_fn, FusedShapes
 from ..vo.odometry import OdomInfo
+from . import perf
 
 MODEL_POINTS = 6      # EPnP minimal sample of the fused RANSAC
 
@@ -82,12 +83,15 @@ class FastSlamPipeline:
         self.seed = seed
         self.draws_fn = draws_fn
         self.device_dict = device_dict
+        self._replay = -1
         shapes = FusedShapes(chunk=chunk, capacity=capacity)
         self._init_carry, self._step, self._offsets = make_fused_chunk_fn(
             camera, cfg, shapes, device=self.device)
         self.reset()
 
     def reset(self):
+        # the recorder's chunk ids are (replay, first frame)
+        self._replay += 1
         self.carry = self._init_carry()
         self._frames = 0
         self._prev_stamp = None
@@ -159,55 +163,60 @@ class FastSlamPipeline:
         are host arrays of the active frames or staged (B, H, W) device
         tensors.  Returns a pending handle for collect()."""
         B = self.chunk
-        H, W = self.camera.height, self.camera.width
         n = int(n_active)
         if not 0 < n <= B:
             raise ValueError(f"n_active={n} outside 1..{B}")
 
-        if isinstance(lefts, torch.Tensor) and lefts.shape == (B, H, W) \
-                and lefts.device == self.device:
-            lb, rb = lefts, rights
-        else:
-            lb = torch.zeros((B, H, W), dtype=torch.uint8,
-                             device=self.device)
-            rb = torch.zeros_like(lb)
-            lb[:n] = _as_u8(lefts[:n]).to(self.device)
-            rb[:n] = _as_u8(rights[:n]).to(self.device)
-        st = np.asarray(stamps, np.float64)
-        dts = np.zeros((B,), np.float32)
-        prev = self._prev_stamp
-        for i in range(n):
-            dts[i] = 0.0 if (self._frames + i == 0) \
-                else st[i] - (prev if i == 0 else st[i - 1])
-        active = np.zeros((B,), bool)
-        active[:n] = True
+        with perf.span("pipe.dispatch", chunk=(self._replay, self._frames),
+                       frames=n):
+            H, W = self.camera.height, self.camera.width
+            if isinstance(lefts, torch.Tensor) and lefts.shape == (B, H, W) \
+                    and lefts.device == self.device:
+                lb, rb = lefts, rights
+            else:
+                lb = torch.zeros((B, H, W), dtype=torch.uint8,
+                                 device=self.device)
+                rb = torch.zeros_like(lb)
+                lb[:n] = _as_u8(lefts[:n]).to(self.device)
+                rb[:n] = _as_u8(rights[:n]).to(self.device)
+            st = np.asarray(stamps, np.float64)
+            dts = np.zeros((B,), np.float32)
+            prev = self._prev_stamp
+            for i in range(n):
+                dts[i] = 0.0 if (self._frames + i == 0) \
+                    else st[i] - (prev if i == 0 else st[i - 1])
+            active = np.zeros((B,), bool)
+            active[:n] = True
 
-        self.carry, outs, feats = self._step(
-            self.carry, lb, rb, torch.as_tensor(dts, device=self.device),
-            torch.as_tensor(active, device=self.device), self._draws(n))
-        dict_handle = None
-        if self._dict_driver is not None:
-            # queue the chunk's dictionary update on the VO chunk's device
-            # outputs: VO_i -> dict_i -> VO_{i+1}
-            dict_handle = self._dict_driver.dispatch(
-                feats["desc"], feats["kpts"][..., 2], feats["n_kpts"],
-                [o < n for o in self._offsets])
-        # results go to pinned host memory without blocking; the event
-        # marks when they have landed.  disp_dec is fetched here too, once:
-        # nothing keeps it on the device
-        host = {k: {kk: vv.to("cpu", non_blocking=True)
-                    for kk, vv in d.items()}
-                for k, d in (("outs", outs), ("feats", feats))}
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        start = self._frames
-        self._frames += n
-        self._prev_stamp = float(st[n - 1])
-        return dict(outs=host["outs"], feats=host["feats"], event=event,
-                    n=n, start=start, stamps=st[:n], dts=dts[:n],
-                    dict_handle=dict_handle)
+            self.carry, outs, feats = self._step(
+                self.carry, lb, rb, torch.as_tensor(dts, device=self.device),
+                torch.as_tensor(active, device=self.device), self._draws(n))
+            dict_handle = None
+            if self._dict_driver is not None:
+                # queue the chunk's dictionary update on the VO chunk's device
+                # outputs: VO_i -> dict_i -> VO_{i+1}
+                dict_handle = self._dict_driver.dispatch(
+                    feats["desc"], feats["kpts"][..., 2], feats["n_kpts"],
+                    [o < n for o in self._offsets])
+            # results go to pinned host memory without blocking; the event
+            # marks when they have landed.  disp_dec is fetched here too, once:
+            # nothing keeps it on the device
+            with perf.span("pipe.fetch"):
+                host = {k: {kk: vv.to("cpu", non_blocking=True)
+                            for kk, vv in d.items()}
+                        for k, d in (("outs", outs), ("feats", feats))}
+                event = None
+                if self.device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record()
+            start = self._frames
+            self._frames += n
+            self._prev_stamp = float(st[n - 1])
+            perf.count("pipe.chunks")
+            perf.count("pipe.frames", n)
+            return dict(outs=host["outs"], feats=host["feats"], event=event,
+                        n=n, start=start, stamps=st[:n], dts=dts[:n],
+                        dict_handle=dict_handle, chunk=(self._replay, start))
 
     # -- host side -----------------------------------------------------------
     def collect(self, pending, gt_poses=None) -> list[tuple[OdomInfo,
@@ -215,40 +224,42 @@ class FastSlamPipeline:
         """Wait for a dispatched chunk; return per-frame (OdomInfo, Frame).
         Full-node frames carry features and decimated disparity."""
         if pending["event"] is not None:
-            pending["event"].synchronize()
-        outs = {k: v.numpy() for k, v in pending["outs"].items()}
-        feats = {k: v.numpy() for k, v in pending["feats"].items()}
-        n = pending["n"]
-        start = pending["start"]
-        off_to_slot = {o: j for j, o in enumerate(self._offsets)}
+            with perf.span("consume.wait"):
+                pending["event"].synchronize()
+        with perf.span("consume.unpack"):
+            outs = {k: v.numpy() for k, v in pending["outs"].items()}
+            feats = {k: v.numpy() for k, v in pending["feats"].items()}
+            n = pending["n"]
+            start = pending["start"]
+            off_to_slot = {o: j for j, o in enumerate(self._offsets)}
 
-        results = []
-        for i in range(n):
-            info = OdomInfo(
-                pose=np.asarray(outs["pose"][i]),
-                lost=bool(outs["lost"][i]),
-                stamp=float(pending["stamps"][i]),
-                interval=float(pending["dts"][i]),
-                transform=(T.NULL.copy() if outs["lost"][i]
-                           else np.asarray(outs["transform"][i])),
-                distance_travelled=float(outs["dist"][i]),
-                velocity=np.asarray(outs["vel"][i]),
-                covariance=np.asarray(outs["cov"][i], np.float64),
-                keyframe_added=bool(outs["keyframe"][i]),
-                num_inliers=int(outs["n_inliers"][i]),
-                num_matches=int(outs["n_matches"][i]),
-            )
-            gt = None if gt_poses is None else gt_poses[i]
-            frame = Frame(stamp=info.stamp, frame_id=start + i, gt_pose=gt)
-            slot = off_to_slot.get(i)
-            if slot is not None:
-                nk = int(feats["n_kpts"][slot])
-                frame.kpts = feats["kpts"][slot][:nk]
-                frame.kpts3d = feats["pts3d"][slot][:nk]
-                frame.desc = feats["desc"][slot][:nk]
-                frame.disparity_dec = feats["disp_dec"][slot]
-            results.append((info, frame))
-        return results
+            results = []
+            for i in range(n):
+                info = OdomInfo(
+                    pose=np.asarray(outs["pose"][i]),
+                    lost=bool(outs["lost"][i]),
+                    stamp=float(pending["stamps"][i]),
+                    interval=float(pending["dts"][i]),
+                    transform=(T.NULL.copy() if outs["lost"][i]
+                               else np.asarray(outs["transform"][i])),
+                    distance_travelled=float(outs["dist"][i]),
+                    velocity=np.asarray(outs["vel"][i]),
+                    covariance=np.asarray(outs["cov"][i], np.float64),
+                    keyframe_added=bool(outs["keyframe"][i]),
+                    num_inliers=int(outs["n_inliers"][i]),
+                    num_matches=int(outs["n_matches"][i]),
+                )
+                gt = None if gt_poses is None else gt_poses[i]
+                frame = Frame(stamp=info.stamp, frame_id=start + i, gt_pose=gt)
+                slot = off_to_slot.get(i)
+                if slot is not None:
+                    nk = int(feats["n_kpts"][slot])
+                    frame.kpts = feats["kpts"][slot][:nk]
+                    frame.kpts3d = feats["pts3d"][slot][:nk]
+                    frame.desc = feats["desc"][slot][:nk]
+                    frame.disparity_dec = feats["disp_dec"][slot]
+                results.append((info, frame))
+            return results
 
     # -- end-to-end loops ----------------------------------------------------
     def run(self, items: list[dict], mapper=None) -> list[OdomInfo]:
@@ -300,15 +311,18 @@ class FastSlamPipeline:
         measured-loop analog of the reference's sensor-to-DDR DMA into
         the PL's double banks (xusb_main.c:91-212, FPGA.h:35-53)."""
         from ..io.native_loader import NativeStereoLoader
-        self._attach_mapper(mapper)
-        loader = NativeStereoLoader(left_paths, right_paths,
-                                    n_banks=2 * self.chunk + 8, n_threads=4)
+        with perf.span("pipe.open"):
+            self._attach_mapper(mapper)
+            loader = NativeStereoLoader(left_paths, right_paths,
+                                        n_banks=2 * self.chunk + 8,
+                                        n_threads=4)
         try:
             return self._run_async(
                 self._ingest_chunks(loader, np.asarray(stamps, np.float64)),
                 mapper)
         finally:
-            loader.close()
+            with perf.span("ingest.close"):
+                loader.close()
 
     def _ingest_chunks(self, loader, stamps):
         """(lefts, rights, stamps, n, None) of each chunk of `loader`'s
@@ -319,49 +333,61 @@ class FastSlamPipeline:
         card = self.device.type == "cuda"
         n_total = len(loader)
         slab = max(1, B // 4)
-        bufs = [tuple(torch.empty((B, H, W), dtype=torch.uint8,
-                                  pin_memory=card) for _ in range(2))
-                for _ in range(2)]
-        views = [(lb.numpy(), rb.numpy()) for lb, rb in bufs]
+        with perf.span("ingest.open"):
+            bufs = [tuple(torch.empty((B, H, W), dtype=torch.uint8,
+                                      pin_memory=card) for _ in range(2))
+                    for _ in range(2)]
+            views = [(lb.numpy(), rb.numpy()) for lb, rb in bufs]
+            copy = torch.cuda.Stream(self.device) if card else None
         # the event after the last upload out of each buffer: the buffer
         # is refilled only once that upload has landed
         landed = [None, None]
-        copy = torch.cuda.Stream(self.device) if card else None
         cur, chunk_idx, n_in, slabs = 0, 0, 0, []
+        frames = iter(loader)
         try:
-            for idx, left, right in loader:
+            while True:
+                with perf.span("ingest.next"):
+                    item = next(frames, None)
+                if item is None:
+                    break
+                idx, left, right = item
+                perf.count("ingest.frames")
                 if left.shape != (H, W) or right.shape != (H, W):
                     raise ValueError(f"frame {idx}: {left.shape} and "
                                      f"{right.shape} images, the camera's "
                                      f"are {(H, W)}")
                 if n_in == 0 and landed[cur] is not None:
-                    landed[cur].synchronize()
+                    with perf.span("ingest.landed"):
+                        landed[cur].synchronize()
                     landed[cur] = None
                 lb, rb = bufs[cur]
-                views[cur][0][n_in] = left        # out of the bank
-                views[cur][1][n_in] = right
+                with perf.span("ingest.copy"):
+                    views[cur][0][n_in] = left        # out of the bank
+                    views[cur][1][n_in] = right
                 n_in += 1
                 last = idx == n_total - 1
                 if n_in % slab == 0 and n_in < B and not last:
                     s0 = n_in - slab
-                    slabs.append(self._upload(lb[s0:n_in], rb[s0:n_in],
-                                              copy))
+                    with perf.span("ingest.upload"):
+                        slabs.append(self._upload(lb[s0:n_in], rb[s0:n_in],
+                                                  copy))
                 if n_in < B and not last:
                     continue
                 lo = chunk_idx * B
-                if n_in == B:
-                    s0 = len(slabs) * slab
-                    slabs.append(self._upload(lb[s0:], rb[s0:], copy))
-                    if card:
-                        compute = torch.cuda.current_stream(self.device)
-                        for ld, rd, ev in slabs:
-                            compute.wait_event(ev)
-                            ld.record_stream(compute)
-                            rd.record_stream(compute)
-                    lefts = torch.cat([s[0] for s in slabs])
-                    rights = torch.cat([s[1] for s in slabs])
-                else:               # partial last chunk: host arrays
-                    lefts, rights = lb[:n_in], rb[:n_in]
+                with perf.span("ingest.upload"):
+                    if n_in == B:
+                        s0 = len(slabs) * slab
+                        slabs.append(self._upload(lb[s0:], rb[s0:], copy))
+                        if card:
+                            compute = torch.cuda.current_stream(self.device)
+                            for ld, rd, ev in slabs:
+                                compute.wait_event(ev)
+                                ld.record_stream(compute)
+                                rd.record_stream(compute)
+                        lefts = torch.cat([s[0] for s in slabs])
+                        rights = torch.cat([s[1] for s in slabs])
+                    else:               # partial last chunk: host arrays
+                        lefts, rights = lb[:n_in], rb[:n_in]
                 if slabs:
                     landed[cur] = slabs[-1][2]
                 yield lefts, rights, stamps[lo:lo + n_in], n_in, None
@@ -371,7 +397,8 @@ class FastSlamPipeline:
                 cur ^= 1
         finally:
             if copy is not None:
-                copy.synchronize()
+                with perf.span("ingest.landed"):
+                    copy.synchronize()
 
     def _upload(self, lefts: torch.Tensor, rights: torch.Tensor, copy):
         """(lefts, rights, event) on the device: host rows uploaded without
@@ -380,6 +407,7 @@ class FastSlamPipeline:
         them before the buffer is refilled) and no event."""
         if copy is None:
             return lefts, rights, None
+        perf.count("ingest.bytes", lefts.nbytes + rights.nbytes)
         with torch.cuda.stream(copy):
             ld = lefts.to(self.device, non_blocking=True)
             rd = rights.to(self.device, non_blocking=True)
@@ -415,15 +443,17 @@ class FastSlamPipeline:
         try:
             for i, (lefts, rights, stamps, n, gts) in enumerate(chunks):
                 pending = self.dispatch(lefts, rights, stamps, n)
-                _put_or_raise(q, (i, pending, gts), t, err)
+                with perf.span("pipe.handoff"):
+                    _put_or_raise(q, (i, pending, gts), t, err)
         finally:
-            while not err and t.is_alive():  # it may be dead, queue full
-                try:
-                    q.put(None, timeout=0.2)
-                    break
-                except queue.Full:
-                    pass
-            t.join()
+            with perf.span("pipe.drain"):
+                while not err and t.is_alive():  # it may be dead, queue full
+                    try:
+                        q.put(None, timeout=0.2)
+                        break
+                    except queue.Full:
+                        pass
+                t.join()
         if err:
             raise err[0]
         if mapper is not None:
@@ -447,17 +477,20 @@ class FastSlamPipeline:
         return infos
 
     def _consume(self, pending, gts, mapper) -> list[OdomInfo]:
-        if mapper is not None and pending["dict_handle"] is not None:
-            decisions = self._dict_driver.fetch(pending["dict_handle"])
-            start, n = pending["start"], pending["n"]
-            for j, off in enumerate(self._offsets):
-                if off < n:
-                    mapper.word_precomputed[start + off] = (
-                        decisions["keep"][j], decisions["unique"][j],
-                        decisions["i1"][j], decisions["count_after"][j])
-        out = []
-        for info, frame in self.collect(pending, gts):
-            if mapper is not None:
-                mapper.process(frame, info)
-            out.append(info)
-        return out
+        with perf.span("pipe.consume", chunk=pending["chunk"],
+                       frames=pending["n"]):
+            if mapper is not None and pending["dict_handle"] is not None:
+                decisions = self._dict_driver.fetch(pending["dict_handle"])
+                start, n = pending["start"], pending["n"]
+                for j, off in enumerate(self._offsets):
+                    if off < n:
+                        mapper.word_precomputed[start + off] = (
+                            decisions["keep"][j], decisions["unique"][j],
+                            decisions["i1"][j], decisions["count_after"][j])
+            out = []
+            for info, frame in self.collect(pending, gts):
+                if mapper is not None:
+                    with perf.span("mapper.process", frames=1):
+                        mapper.process(frame, info)
+                out.append(info)
+            return out

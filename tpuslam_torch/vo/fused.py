@@ -43,6 +43,7 @@ from ..kernels.gftt import gftt_candidates, select_from_candidates_device
 from ..kernels.orb import orb_descriptors_const_angle
 from ..kernels.sgbm import sgbm
 from ..kernels.stereo_bm import stereo_bm
+from ..runtime import perf
 
 BIG = 1e9
 
@@ -250,15 +251,22 @@ def make_frontend_fn(camera: StereoCameraModel, cfg: SlamConfig,
                          with_speckle=cfg.fused_speckle)
 
     def frontend(lefts, rights):
-        B = lefts.shape[0]
-        disp = compute_disparity(lefts, rights)
-        kpts, valid, n_k = detect_keypoints(lefts, cfg, shapes)
+        with perf.span("fe.disparity"):
+            disp = compute_disparity(lefts, rights)
+        with perf.span("fe.gftt"):
+            kpts, valid, n_k = detect_keypoints(lefts, cfg, shapes)
 
         # GFTT keypoints carry angle -1 (GFTT.cpp octave-0 path)
-        desc = orb_descriptors_const_angle(lefts, kpts[..., :2].contiguous(),
-                                           valid, angle_deg=-1.0)
+        with perf.span("fe.orb"):
+            desc = orb_descriptors_const_angle(
+                lefts, kpts[..., :2].contiguous(), valid, angle_deg=-1.0)
+        with perf.span("fe.lift"):
+            return lift(disp, kpts, valid, n_k, desc)
 
-        # 3D lift (Stereo.cpp:53-117): truncated int coords, /16, robot frame
+    def lift(disp, kpts, valid, n_k, desc):
+        """The 3D lift (Stereo.cpp:53-117): truncated int coords, /16,
+        robot frame; and the feature dict."""
+        B = disp.shape[0]
         xi = kpts[..., 0].long()
         yi = kpts[..., 1].long()
         d16 = disp.reshape(B, -1).gather(1, yi * W + xi)
@@ -341,180 +349,190 @@ def make_fused_chunk_fn(camera: StereoCameraModel, cfg: SlamConfig,
 
     # ---- the VO step -----------------------------------------------------
     def vo_step(carry, feats, dt, draws):
-        frames = carry["frames"]
-        is_first = frames == 0
-        pose = carry["pose"]
+        with perf.span("vo.match"):
+            frames = carry["frames"]
+            is_first = frames == 0
+            pose = carry["pose"]
 
-        # constant-velocity guess (Odometry.cpp:42-56)
-        v = carry["vel"]
-        guess = _from_rpy_xyz(v[0] * dt, v[1] * dt, v[2] * dt,
-                              v[3] * dt, v[4] * dt, v[5] * dt)
-        has_guess = carry["has_vel"] & ~is_first
+            # constant-velocity guess (Odometry.cpp:42-56)
+            v = carry["vel"]
+            guess = _from_rpy_xyz(v[0] * dt, v[1] * dt, v[2] * dt,
+                                  v[3] * dt, v[4] * dt, v[5] * dt)
+            has_guess = carry["has_vel"] & ~is_first
 
-        motion_since_kf = _compose(_inv(carry["kf_pose"]), pose)
-        guess_update = _compose(motion_since_kf, guess)
+            motion_since_kf = _compose(_inv(carry["kf_pose"]), pose)
+            guess_update = _compose(motion_since_kf, guess)
 
-        # shared Hamming matrix, ref (query) x cur (train); exact in f32
-        dist = (carry["ref_nbits"][:, None] + feats["nbits"][None, :]
-                - 2.0 * (carry["ref_bits"] @ feats["bits"].T))
-        dist = torch.where(carry["ref_valid"][:, None] &
-                           feats["valid"][None, :], dist, BIG)
+            # shared Hamming matrix, ref (query) x cur (train); exact in f32
+            dist = (carry["ref_nbits"][:, None] + feats["nbits"][None, :]
+                    - 2.0 * (carry["ref_bits"] @ feats["bits"].T))
+            dist = torch.where(carry["ref_valid"][:, None] &
+                               feats["valid"][None, :], dist, BIG)
 
-        # guided candidate set (Registration.cpp:236-303)
-        guess_cam = _inv(_compose(guess_update, local_t))
-        pc = carry["ref_pts3d"] @ guess_cam[:3, :3].T + guess_cam[:3, 3]
-        pu = pc[:, 0] / pc[:, 2] * fx + cx_l
-        pv = pc[:, 1] / pc[:, 2] * fy + cy_l
-        pvalid = (torch.isfinite(pu) & torch.isfinite(pv) &
-                  (pu > 0.0) & (pu < W - 1) & (pv > 0.0) & (pv < H - 1) &
-                  (pc[:, 2] > 0.0) & carry["ref_valid"])
-        dxm = torch.nan_to_num(pu, nan=-1e6)[:, None] - \
-            feats["kpts"][:, 0][None, :]
-        dym = torch.nan_to_num(pv, nan=-1e6)[:, None] - \
-            feats["kpts"][:, 1][None, :]
-        in_rad = ((dxm * dxm + dym * dym <= radius * radius) &
-                  feats["valid"][None, :] & pvalid[:, None])
-        n_cand_g = in_rad.sum(dim=1)
+            # guided candidate set (Registration.cpp:236-303)
+            guess_cam = _inv(_compose(guess_update, local_t))
+            pc = carry["ref_pts3d"] @ guess_cam[:3, :3].T + guess_cam[:3, 3]
+            pu = pc[:, 0] / pc[:, 2] * fx + cx_l
+            pv = pc[:, 1] / pc[:, 2] * fy + cy_l
+            pvalid = (torch.isfinite(pu) & torch.isfinite(pv) &
+                      (pu > 0.0) & (pu < W - 1) & (pv > 0.0) & (pv < H - 1) &
+                      (pc[:, 2] > 0.0) & carry["ref_valid"])
+            dxm = torch.nan_to_num(pu, nan=-1e6)[:, None] - \
+                feats["kpts"][:, 0][None, :]
+            dym = torch.nan_to_num(pv, nan=-1e6)[:, None] - \
+                feats["kpts"][:, 1][None, :]
+            in_rad = ((dxm * dxm + dym * dym <= radius * radius) &
+                      feats["valid"][None, :] & pvalid[:, None])
+            n_cand_g = in_rad.sum(dim=1)
 
-        d1g, i1g, d2g, _ = M._top2_min(torch.where(in_rad, dist, BIG))
-        acc_g = ((n_cand_g >= 2) & (d1g < nndr * d2g)) | (n_cand_g == 1)
-        m_g, n_match_g = corr_mask(acc_g, i1g, carry["ref_pts3d"])
+            d1g, i1g, d2g, _ = M._top2_min(torch.where(in_rad, dist, BIG))
+            acc_g = ((n_cand_g >= 2) & (d1g < nndr * d2g)) | (n_cand_g == 1)
+            m_g, n_match_g = corr_mask(acc_g, i1g, carry["ref_pts3d"])
 
-        # global brute-force (Registration.cpp:311-335)
-        d1n, i1n, d2n, _ = M._top2_min(dist)
-        acc_n = carry["ref_valid"] & (d1n < nndr * d2n)
-        m_n, n_match_n = corr_mask(acc_n, i1n, carry["ref_pts3d"])
+            # global brute-force (Registration.cpp:311-335)
+            d1n, i1n, d2n, _ = M._top2_min(dist)
+            acc_n = carry["ref_valid"] & (d1n < nndr * d2n)
+            m_n, n_match_n = corr_mask(acc_n, i1n, carry["ref_pts3d"])
 
-        # wrong-guess retry (Odometry.cpp:139-142)
-        retry = has_guess & (n_match_g <
-                             carry["num_objects"].float() *
-                             cfg.odometry.guess_ratio)
-        use_global = ~has_guess | retry
-        i1 = torch.where(use_global, i1n, i1g)
-        m = torch.where(use_global, m_n, m_g)
-        n_match = torch.where(use_global, n_match_n, n_match_g)
+            # wrong-guess retry (Odometry.cpp:139-142)
+            retry = has_guess & (n_match_g <
+                                 carry["num_objects"].float() *
+                                 cfg.odometry.guess_ratio)
+            use_global = ~has_guess | retry
+            i1 = torch.where(use_global, i1n, i1g)
+            m = torch.where(use_global, m_n, m_g)
+            n_match = torch.where(use_global, n_match_n, n_match_g)
 
-        # PnP RANSAC (MotionEstimation.cpp:279-374)
-        obj = torch.nan_to_num(carry["ref_pts3d"], nan=0.0)
-        img = feats["kpts"][i1, :2]
-        rvec, tvec, inl_mask, n_inl = P.ransac_epnp(
-            obj, img, m, K_l, draws, reproj_err, n_hyp=n_hyp)
-        ransac_ok = n_inl > 0
+        with perf.span("vo.ransac"):
+            # PnP RANSAC (MotionEstimation.cpp:279-374)
+            obj = torch.nan_to_num(carry["ref_pts3d"], nan=0.0)
+            img = feats["kpts"][i1, :2]
+            rvec, tvec, inl_mask, n_inl = P.ransac_epnp(
+                obj, img, m, K_l, draws, reproj_err, n_hyp=n_hyp)
+            ransac_ok = n_inl > 0
 
-        # refinement round(s) with the reference's swap semantics
-        inl, rv, tv = inl_mask, rvec, tvec
-        thr = reproj_err
-        do_refine = n_inl >= min_inl
-        prev = inl_mask
-        for _ in range(max(cfg.pnp.refine_iterations, 0)):
-            rv2, tv2, err = P.refine_lm_with_errors_auto(
-                obj, img, prev.float(), m, K_l, rv, tv)
-            new_inl = (err <= thr) & m
-            n_new = new_inl.sum()
-            kept = torch.where(new_inl, err, 0.0)
-            mean = kept.sum() / torch.clamp(n_new, min=1)
-            var = torch.where(new_inl, (err - mean) ** 2, 0.0).sum() / \
-                torch.clamp(n_new - 1, min=1)
-            thr = torch.minimum(reproj_err, refine_sigma * torch.sqrt(var))
-            same = (new_inl == prev).all()
-            brk = (n_new < min_inl) | same
-            # break -> latest set; budget exhaustion -> previous set
-            # (MotionEstimation.cpp:370 std::swap tail)
-            inl_final = torch.where(brk, new_inl, prev)
-            rv = torch.where(do_refine, rv2, rv)
-            tv = torch.where(do_refine, tv2, tv)
-            inl = torch.where(do_refine, inl_final, inl)
-            prev = torch.where(brk, prev, new_inl)
+        with perf.span("vo.refine"):
+            # refinement round(s) with the reference's swap semantics
+            inl, rv, tv = inl_mask, rvec, tvec
+            thr = reproj_err
+            do_refine = n_inl >= min_inl
+            prev = inl_mask
+            for _ in range(max(cfg.pnp.refine_iterations, 0)):
+                rv2, tv2, err = P.refine_lm_with_errors_auto(
+                    obj, img, prev.float(), m, K_l, rv, tv)
+                new_inl = (err <= thr) & m
+                n_new = new_inl.sum()
+                kept = torch.where(new_inl, err, 0.0)
+                mean = kept.sum() / torch.clamp(n_new, min=1)
+                var = torch.where(new_inl, (err - mean) ** 2, 0.0).sum() / \
+                    torch.clamp(n_new - 1, min=1)
+                thr = torch.minimum(reproj_err, refine_sigma * torch.sqrt(var))
+                same = (new_inl == prev).all()
+                brk = (n_new < min_inl) | same
+                # break -> latest set; budget exhaustion -> previous set
+                # (MotionEstimation.cpp:370 std::swap tail)
+                inl_final = torch.where(brk, new_inl, prev)
+                rv = torch.where(do_refine, rv2, rv)
+                tv = torch.where(do_refine, tv2, tv)
+                inl = torch.where(do_refine, inl_final, inl)
+                prev = torch.where(brk, prev, new_inl)
 
-        n_inliers = inl.sum()
-        ok = ((n_match >= min_inl) & ransac_ok & (n_inliers >= min_inl)) \
-            | is_first
+        with perf.span("vo.pose"):
+            n_inliers = inl.sum()
+            ok = ((n_match >= min_inl) & ransac_ok & (n_inliers >= min_inl)) \
+                | is_first
 
-        # camera pose -> robot-frame transform (MotionEstimation.cpp:155-160)
-        pnp_mat = eye4.clone()
-        pnp_mat[:3, :3] = P.rodrigues(rv)
-        pnp_mat[:3, 3] = tv
-        tf = _inv(_compose(local_t, pnp_mat))
-        t = torch.where(is_first, eye4, tf)
+            # camera pose -> robot-frame transform
+            # (MotionEstimation.cpp:155-160)
+            pnp_mat = eye4.clone()
+            pnp_mat[:3, :3] = P.rodrigues(rv)
+            pnp_mat[:3, 3] = tv
+            tf = _inv(_compose(local_t, pnp_mat))
+            t = torch.where(is_first, eye4, tf)
 
-        # covariance from median errors of inliers
-        # (MotionEstimation.cpp:162-214)
-        pts_b = feats["pts3d"][i1]
-        ok3 = torch.isfinite(pts_b).all(dim=1) & inl
-        new_pt = torch.nan_to_num(pts_b, nan=0.0) @ tf[:3, :3].T + tf[:3, 3]
-        pts_a = obj
-        d2 = torch.sum((pts_a - new_pt) ** 2, dim=1)
-        org = tf[:3, 3]
-        v1 = pts_a - org
-        v2 = new_pt - org
-        n1 = _norm(v1) + 1e-30
-        n2 = _norm(v2) + 1e-30
-        cosr = torch.sum(v1 * v2, dim=1) / (n1 * n2)
-        ang_err = torch.acos(torch.clamp(cosr, -1.0, 1.0))
-        med_d, med_a, cnt3 = masked_median2(d2[None], ang_err[None],
-                                            ok3[None])
-        med_d = torch.clamp(med_d[0], min=1e-4)
-        med_a = torch.clamp(med_a[0], min=1e-4)
-        cov_med = torch.diag(torch.cat([med_d.expand(3), med_a.expand(3)]))
-        cov = torch.where(is_first, eye6 * cfg.odometry.initial_cov,
-                          torch.where(ok & (cnt3[0] > 0), cov_med, eye6))
+            # covariance from median errors of inliers
+            # (MotionEstimation.cpp:162-214)
+            pts_b = feats["pts3d"][i1]
+            ok3 = torch.isfinite(pts_b).all(dim=1) & inl
+            new_pt = torch.nan_to_num(pts_b, nan=0.0) @ tf[:3, :3].T + \
+                tf[:3, 3]
+            pts_a = obj
+            d2 = torch.sum((pts_a - new_pt) ** 2, dim=1)
+            org = tf[:3, 3]
+            v1 = pts_a - org
+            v2 = new_pt - org
+            n1 = _norm(v1) + 1e-30
+            n2 = _norm(v2) + 1e-30
+            cosr = torch.sum(v1 * v2, dim=1) / (n1 * n2)
+            ang_err = torch.acos(torch.clamp(cosr, -1.0, 1.0))
+            med_d, med_a, cnt3 = masked_median2(d2[None], ang_err[None],
+                                                ok3[None])
+            med_d = torch.clamp(med_d[0], min=1e-4)
+            med_a = torch.clamp(med_a[0], min=1e-4)
+            cov_med = torch.diag(torch.cat([med_d.expand(3), med_a.expand(3)]))
+            cov = torch.where(is_first, eye6 * cfg.odometry.initial_cov,
+                              torch.where(ok & (cnt3[0] > 0), cov_med, eye6))
 
-        # odometry output transform & keyframe logic (Odometry.cpp:104-183)
-        output = _compose(_inv(motion_since_kf), t)
-        new_pose = torch.where(ok, _compose(pose, output), pose)
-        step_len = torch.where(ok, _norm(output[:3, 3]), 0.0)
+            # odometry output transform & keyframe logic (Odometry.cpp:104-183)
+            output = _compose(_inv(motion_since_kf), t)
+            new_pose = torch.where(ok, _compose(pose, output), pose)
+            step_len = torch.where(ok, _norm(output[:3, 3]), 0.0)
 
-        n_ref = carry["ref_n"].float()
-        add_kf = is_first | \
-            (n_inliers.float() <= cfg.odometry.keyframe_thr * n_ref) | \
-            (n_inliers <= cfg.odometry.vis_keyframe_thr)
+            n_ref = carry["ref_n"].float()
+            add_kf = is_first | \
+                (n_inliers.float() <= cfg.odometry.keyframe_thr * n_ref) | \
+                (n_inliers <= cfg.odometry.vis_keyframe_thr)
 
-        # velocity update (Odometry.cpp:62-76 via process)
-        roll, pitch, yaw = _get_rpy(output)
-        safe_dt = torch.clamp(dt, min=1e-9)
-        vel_new = torch.stack([output[0, 3], output[1, 3], output[2, 3],
-                               roll, pitch, yaw]) / safe_dt
-        vel = torch.where(dt > 0, torch.where(ok, vel_new, zeros6), zeros6)
+            # velocity update (Odometry.cpp:62-76 via process)
+            roll, pitch, yaw = _get_rpy(output)
+            safe_dt = torch.clamp(dt, min=1e-9)
+            vel_new = torch.stack([output[0, 3], output[1, 3], output[2, 3],
+                                   roll, pitch, yaw]) / safe_dt
+            vel = torch.where(dt > 0, torch.where(ok, vel_new, zeros6), zeros6)
 
-        def sel(new, old):
-            return torch.where(add_kf, new, old)
+            def sel(new, old):
+                return torch.where(add_kf, new, old)
 
-        new_carry = dict(
-            pose=new_pose,
-            vel=vel,
-            has_vel=dt > 0,
-            kf_pose=sel(new_pose, carry["kf_pose"]),
-            ref_kpts=sel(feats["kpts"], carry["ref_kpts"]),
-            ref_pts3d=sel(feats["pts3d"], carry["ref_pts3d"]),
-            ref_bits=sel(feats["bits"], carry["ref_bits"]),
-            ref_nbits=sel(feats["nbits"], carry["ref_nbits"]),
-            ref_valid=sel(feats["valid"], carry["ref_valid"]),
-            ref_n=sel(feats["n_kpts"], carry["ref_n"]),
-            num_objects=torch.where(is_first, carry["num_objects"],
-                                    n_match),
-            frames=frames + 1,
-            dist=carry["dist"] + step_len,
-        )
-        out = dict(pose=new_pose,
-                   transform=torch.where(ok, output, torch.zeros_like(eye4)),
-                   lost=~ok, keyframe=add_kf, cov=cov,
-                   n_inliers=n_inliers, n_matches=n_match, vel=vel,
-                   dist=new_carry["dist"],
-                   used_global=use_global,
-                   n_matches_guided=n_match_g,
-                   n_matches_global=n_match_n)
-        return new_carry, out
+            new_carry = dict(
+                pose=new_pose,
+                vel=vel,
+                has_vel=dt > 0,
+                kf_pose=sel(new_pose, carry["kf_pose"]),
+                ref_kpts=sel(feats["kpts"], carry["ref_kpts"]),
+                ref_pts3d=sel(feats["pts3d"], carry["ref_pts3d"]),
+                ref_bits=sel(feats["bits"], carry["ref_bits"]),
+                ref_nbits=sel(feats["nbits"], carry["ref_nbits"]),
+                ref_valid=sel(feats["valid"], carry["ref_valid"]),
+                ref_n=sel(feats["n_kpts"], carry["ref_n"]),
+                num_objects=torch.where(is_first, carry["num_objects"],
+                                        n_match),
+                frames=frames + 1,
+                dist=carry["dist"] + step_len,
+            )
+            out = dict(pose=new_pose,
+                       transform=torch.where(ok, output,
+                                             torch.zeros_like(eye4)),
+                       lost=~ok, keyframe=add_kf, cov=cov,
+                       n_inliers=n_inliers, n_matches=n_match, vel=vel,
+                       dist=new_carry["dist"],
+                       used_global=use_global,
+                       n_matches_guided=n_match_g,
+                       n_matches_global=n_match_n)
+            return new_carry, out
 
     # ---- chunk program ---------------------------------------------------
     def chunk_step(carry, lefts, rights, dts, active, draws):
-        feats_all = frontend(lefts, rights)
-        feats_all["nbits"] = feats_all["bits"].sum(dim=2)
+        with perf.span("vo.frontend"):
+            feats_all = frontend(lefts, rights)
+            feats_all["nbits"] = feats_all["bits"].sum(dim=2)
         per_frame = []
         for i in range(lefts.shape[0]):
-            f = {k: v[i] for k, v in feats_all.items()}
-            nc, out = vo_step(carry, f, dts[i], draws[i])
-            act = active[i]
-            carry = {k: torch.where(act, nc[k], carry[k]) for k in carry}
+            with perf.span("vo.step"):
+                f = {k: v[i] for k, v in feats_all.items()}
+                nc, out = vo_step(carry, f, dts[i], draws[i])
+                act = active[i]
+                carry = {k: torch.where(act, nc[k], carry[k])
+                         for k in carry}
             per_frame.append(out)
         outs = {k: torch.stack([o[k] for o in per_frame])
                 for k in per_frame[0]}
