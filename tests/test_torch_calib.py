@@ -26,9 +26,6 @@ from tpuslam.calib import render_chessboard
 from tpuslam.calib.calibrate import _rvec
 from tpuslam.calib.chessboard import _rodrigues, saddle_response as j_saddle
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
 
 # tests/test_calib.py:19-24's rig
 K1 = np.array([[520.0, 0, 321.0], [0, 518.0, 242.0], [0, 0, 1]])

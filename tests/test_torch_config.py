@@ -19,9 +19,6 @@ import tpuslam
 import tpuslam_torch
 from tpuslam_torch import convert
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["config.py", "geometry/transform.py", "geometry/camera.py",

@@ -31,9 +31,6 @@ from tpuslam_torch.optim import device as T
 
 from test_optim import make_noisy_loop
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
 
 ITERS = 5
 

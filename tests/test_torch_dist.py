@@ -30,7 +30,6 @@ registration already.
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import threading
@@ -55,10 +54,6 @@ from tpuslam_torch.optim import device as tdev
 
 from test_dist import _ba_problem
 from test_optim import make_noisy_loop
-
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 4            # shards of each mesh
@@ -495,12 +490,6 @@ def test_partitioned_mapper_refuses_async_loop_closure():
 
 # ------------------------------------------------ the multi-process path
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def seq(tmp_path_factory):
     from tpuslam_torch.io.synthetic import write_sequence
@@ -546,7 +535,7 @@ def test_extract_block_features_matches_reference(seq):
 
 
 @pytest.fixture(scope="module")
-def dist_runs(seq, tmp_path_factory):
+def dist_runs(seq, tmp_path_factory, free_port):
     """The worker as two gloo ranks and as one process, and the CLI as two
     gloo ranks, at once on the CPU; (worker outputs, CLI output dir)."""
     out = str(tmp_path_factory.mktemp("distout"))
@@ -557,7 +546,7 @@ def dist_runs(seq, tmp_path_factory):
     worker = [sys.executable, "-m", "tpuslam_torch.tools.dist_worker",
               seq]
     opts = ["--device", "cpu", "--backend", "gloo", "--chunk", "4"]
-    wcoord, ccoord = f"localhost:{_free_port()}", f"localhost:{_free_port()}"
+    wcoord, ccoord = f"localhost:{free_port()}", f"localhost:{free_port()}"
     cmds = [worker + [os.path.join(out, "two"), wcoord, "2", str(r)] + opts
             for r in range(2)]
     cmds.append(worker + [os.path.join(out, "one"), "-", "1", "0"] + opts)

@@ -28,10 +28,6 @@ from tpuslam.vo import fused as JF
 from tpuslam_torch import convert
 from tpuslam_torch.vo import fused as TF
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
-
 
 def _jax_draws(frame):
     return np.array(jax.random.uniform(jax.random.PRNGKey(frame), (300, 6)))

@@ -18,10 +18,6 @@ import jax.numpy as jnp
 from tpuslam.kernels import gftt as J
 from tpuslam_torch.kernels import gftt as T
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
-
 
 def _eig_pair(img):
     eig_j, dil_j = J.gftt_response_dil_pallas(jnp.asarray(img),
@@ -134,7 +130,6 @@ def test_nms_small_capacity_and_cap():
         120, 7.0, max_features=50, capacity=600)
     assert int(nt[0]) == int(nj) == 50
     np.testing.assert_array_equal(kt[0].numpy(), np.asarray(kj))
-
 
 
 @pytest.mark.parametrize("block, inside", [(3, True), (5, False)])

@@ -26,15 +26,11 @@ import time
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 from tpuslam_torch.io import native_loader as NL
 from tpuslam_torch.io.resize import resize_bilinear
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
 
 # colour PNGs by Pillow mode, and the PGM
 KINDS = {"gray": ("L", (23, 31)), "rgb": ("RGB", (23, 31, 3)),

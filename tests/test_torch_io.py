@@ -23,10 +23,6 @@ from PIL import Image
 
 from tpuslam_torch.io import png
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
-
 
 def _filter_rows(img: np.ndarray, kind: int) -> bytes:
     """PNG filter `kind` (0-4) applied to every row of an 8-bit

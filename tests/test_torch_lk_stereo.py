@@ -20,9 +20,6 @@ import torch
 from tpuslam.kernels import lk_stereo as J
 from tpuslam_torch.kernels import lk_stereo as T
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
 
 N_POINTS = 256
 

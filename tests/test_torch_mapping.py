@@ -27,10 +27,6 @@ import jax.numpy as jnp
 from tpuslam.config import SlamConfig, MapperConfig
 from tpuslam_torch import convert
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
-
 
 def _jax_draws(seed):
     return np.array(jax.random.uniform(jax.random.PRNGKey(seed), (300, 6)))

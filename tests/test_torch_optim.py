@@ -20,10 +20,6 @@ import jax.numpy as jnp
 
 from tpuslam_torch import convert
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
-
 
 def _graph(seed):
     """A 24-node trajectory with drifted odometry links, two good loop

@@ -20,10 +20,6 @@ from tpuslam.kernels import gftt as JG
 from tpuslam_torch.kernels import orb as T
 from tpuslam_torch.kernels import matching as TM
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
-
 
 def test_pattern_and_offsets_equal():
     np.testing.assert_array_equal(T.orb_pattern(), J.orb_pattern())

@@ -20,10 +20,6 @@ import jax.numpy as jnp
 from tpuslam.kernels import pnp as J
 from tpuslam_torch.kernels import pnp as T
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
-
 
 def _rot(rng):
     w = rng.normal(0, 0.3, 3)

@@ -22,14 +22,9 @@ import os
 import cv2
 import numpy as np
 import pytest
-import torch
 
 from tpuslam.config import DepthMethod, MapperConfig, SGBMConfig, SlamConfig
 from tpuslam_torch import convert
-
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
 
 
 def _draws(seed):

@@ -14,10 +14,6 @@ import torch
 from tpuslam.kernels import rectify as J
 from tpuslam_torch.kernels import rectify as T
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
-
 
 @pytest.fixture(scope="module")
 def raw_pair():

@@ -19,8 +19,6 @@ from tpuslam_torch.optim.segment import segment_sum
 from test_optim import make_noisy_loop
 from tpuslam.mapping.graph import Link, LOOP_CLOSURE
 
-torch.set_num_threads(1)
-
 
 def _equal(a, b):
     assert a.shape == b.shape and a.dtype == b.dtype

@@ -26,9 +26,6 @@ from tpuslam.kernels import sgbm as J
 from tpuslam_torch.config import SGBMConfig
 from tpuslam_torch.kernels import sgbm as T
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
 
 CONFIGS = {
     "reference": dict(),

@@ -34,14 +34,10 @@ import cv2
 import jax
 import numpy as np
 import pytest
-import torch
 
 from tpuslam.config import SlamConfig, MapperConfig
 from tpuslam_torch import convert
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
 
 OUTPUTS = ("map_poses.csv", "map_links.csv", "optimized_poses.csv",
            "slam.bt", "perf_time.csv")

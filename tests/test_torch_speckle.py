@@ -23,9 +23,6 @@ from tpuslam.kernels import stereo_bm as J
 from tpuslam_torch.config import StereoBMConfig
 from tpuslam_torch.kernels import stereo_bm as T
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
 
 MAX_SIZE, MAX_DIFF, FILTERED = 50, 32, -16     # SlamConfig().bm's
 _jax_speckle = jax.jit(J.speckle_filter_with_flag, static_argnums=(1, 2, 3))

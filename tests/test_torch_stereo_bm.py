@@ -17,9 +17,6 @@ from tpuslam.kernels import stereo_bm as J
 from tpuslam_torch.config import StereoBMConfig
 from tpuslam_torch.kernels import stereo_bm as T
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
 
 SLICE = dict(disp12_max_diff=-1)     # the slice: no left-right check
 

@@ -17,10 +17,6 @@ import jax.numpy as jnp
 from tpuslam.io import synthetic as J
 from tpuslam_torch.io import synthetic as T
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
-
 
 def test_hash_exact(rng):
     ix = rng.integers(-2 ** 31, 2 ** 31, 5000).astype(np.int32)

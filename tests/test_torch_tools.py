@@ -34,9 +34,6 @@ from tpuslam.config import StereoBMConfig as JCfg
 from tpuslam.kernels import stereo_bm as JBM
 from tpuslam_torch.io.png import read_png
 
-# the suite runs several worker processes on the machine's cores: more
-# intra-op threads per worker oversubscribe them and spin-wait
-torch.set_num_threads(1)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 PATTERNS = (1, 2, 3, 4, 5)
